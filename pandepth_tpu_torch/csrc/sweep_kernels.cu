@@ -1,0 +1,393 @@
+// Hand-written Hopper (sm_90a) kernels for the chr-mode coverage sweep.
+//
+// Plain C interface, built with nvcc and loaded with ctypes by
+// pandepth_tpu_torch/device/kernels.py. Every entry point launches on
+// the caller's stream, allocates nothing (the wrapper passes outputs
+// and scratch), never synchronises, and returns cudaGetLastError()
+// (0 = launched).
+//
+// Position tiers (pandepth_tpu/device/hosteval.py:pos_dtype_for):
+//   TIER_I32  int32 positions, sentinel INT32_MAX
+//   TIER_U32  uint32 positions carried on the device as zero-extended
+//             int64 (PyTorch has no uint32 arithmetic), sentinel and
+//             "tier max" 0xFFFFFFFF
+//   TIER_I64  int64 positions, sentinel INT64_MAX
+// Positions are non-negative and a difference is only ever taken of a
+// position and one at or above it, so no tier's subtraction wraps and
+// int64 differences equal the JAX functions' differences in their
+// position dtype: every output is array-equal to the JAX package's.
+
+#include <cstdint>
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int TIER_I32 = 0;
+constexpr int TIER_U32 = 1;
+constexpr int TIER_I64 = 2;
+
+constexpr int THREADS = 256;            // threads per block in the scans
+constexpr int ITEMS = 8;                // consecutive elements per thread
+constexpr int TILE = THREADS * ITEMS;   // elements per scan block
+constexpr int TOTALS_THREADS = 1024;    // the one-block scan of totals
+constexpr int POINT_THREADS = 256;      // pack_events / eval_pair
+constexpr int32_t WRAP18_MASK = 0x3FFFF;
+
+typedef unsigned long long u64;
+
+// ---------------------------------------------------------------------
+// block-wide scan helpers (warp shuffles, one shared slot per warp)
+
+template <typename T>
+__device__ __forceinline__ T warp_inclusive_scan(T x) {
+    const int lane = threadIdx.x & 31;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+        T y = __shfl_up_sync(0xffffffffu, x, o);
+        if (lane >= o) x += y;
+    }
+    return x;
+}
+
+// Exclusive scan of one value per thread across the block; unsigned T
+// so that sums wrap like the JAX int32/int64 cumsums. blockDim.x must be
+// a multiple of 32. All threads must call it.
+template <typename T>
+__device__ T block_exclusive_scan(T v, T* warp_tot, T* block_total) {
+    const int lane = threadIdx.x & 31;
+    const int warp = threadIdx.x >> 5;
+    const int nwarps = blockDim.x >> 5;
+    T x = warp_inclusive_scan(v);
+    if (lane == 31) warp_tot[warp] = x;
+    __syncthreads();
+    if (warp == 0) {
+        T w = lane < nwarps ? warp_tot[lane] : T(0);
+        w = warp_inclusive_scan(w);
+        if (lane < nwarps) warp_tot[lane] = w;
+    }
+    __syncthreads();
+    T excl = (warp > 0 ? warp_tot[warp - 1] : T(0)) + x - v;
+    *block_total = warp_tot[nwarps - 1];
+    __syncthreads();  // warp_tot is reused by the next call
+    return excl;
+}
+
+// ---------------------------------------------------------------------
+// K1 pack_events — replaces pandepth_tpu/device/engine.py:_pack_events.
+// Bound on the H100: memory. It reads 2M raw position words (4 or 8 B)
+// and writes 2M positions (4 or 8 B) plus 2M int32 deltas, with no
+// reuse: 12-20 B per event. One thread per output slot, consecutive
+// threads on consecutive addresses, so every load and store coalesces;
+// the JAX concat becomes index arithmetic (slot i < m reads starts,
+// else ends), and the uint32 tier's zero-extension to int64 rides the
+// same pass instead of a separate cast.
+template <typename In, typename Out>
+__global__ void pack_events_kernel(const In* __restrict__ starts,
+                                   const In* __restrict__ ends, int64_t m,
+                                   Out sentinel, Out* __restrict__ pos,
+                                   int32_t* __restrict__ delta) {
+    const int64_t n = 2 * m;
+    const int64_t stride = (int64_t)gridDim.x * blockDim.x;
+    for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n;
+         i += stride) {
+        const bool is_end = i >= m;
+        const Out p = (Out)(is_end ? ends[i - m] : starts[i]);
+        pos[i] = p;
+        const int32_t live = p < sentinel ? 1 : 0;
+        delta[i] = is_end ? -live : live;
+    }
+}
+
+// ---------------------------------------------------------------------
+// K2 sweep_scan — replaces the arithmetic of
+// pandepth_tpu/device/sweep.py:sort_events (the sort itself stays a
+// library sort, as it was an XLA primitive).
+// Bound on the H100: memory. Per event it reads delta (4 B) twice and
+// pos (4-8 B) once, and writes depth (4 B), c_cov and c_sum (8 B each)
+// and then re-reads and re-writes c_cov/c_sum for the carry: ~60 B per
+// event, ~1 GB at 16.8M events. The design is a multi-pass block scan:
+//   1. per-block delta totals            (delta_block_totals_kernel)
+//   2. one-block exclusive scan of them  (exclusive_scan_one_block)
+//   3. per-block depth with its carry, then plen and plen*depth and
+//      their in-block inclusive prefixes + block totals
+//                                         (scan_depth_kernel)
+//   4. one-block exclusive scans of the two total arrays
+//   5. carry add                          (add_carry_kernel)
+// Decoupled look-back would fold this into one pass; that is later work.
+
+__global__ void delta_block_totals_kernel(const int32_t* __restrict__ delta,
+                                          int64_t n,
+                                          uint32_t* __restrict__ tot) {
+    __shared__ uint32_t warp_tot[32];
+    const int64_t base = (int64_t)blockIdx.x * TILE;
+    uint32_t s = 0;
+#pragma unroll
+    for (int k = 0; k < ITEMS; ++k) {
+        const int64_t i = base + (int64_t)k * THREADS + threadIdx.x;
+        if (i < n) s += (uint32_t)delta[i];
+    }
+    uint32_t block_total;
+    block_exclusive_scan<uint32_t>(s, warp_tot, &block_total);
+    if (threadIdx.x == 0) tot[blockIdx.x] = block_total;
+}
+
+// In-place exclusive scan of n values by ONE block of TOTALS_THREADS.
+template <typename T>
+__global__ void exclusive_scan_one_block(T* __restrict__ a, int64_t n) {
+    __shared__ T warp_tot[32];
+    T carry = 0;
+    for (int64_t b = 0; b < n; b += blockDim.x) {
+        const int64_t i = b + threadIdx.x;
+        const T v = i < n ? a[i] : T(0);
+        T chunk_total;
+        const T ex = block_exclusive_scan<T>(v, warp_tot, &chunk_total);
+        if (i < n) a[i] = carry + ex;
+        carry += chunk_total;
+    }
+}
+
+template <typename P>
+__global__ void scan_depth_kernel(const P* __restrict__ pos,
+                                  const int32_t* __restrict__ delta,
+                                  int64_t n,
+                                  const uint32_t* __restrict__ delta_carry,
+                                  int32_t min_dep, int wrap18, P pmax,
+                                  int32_t* __restrict__ depth,
+                                  u64* __restrict__ c_cov,
+                                  u64* __restrict__ c_sum,
+                                  u64* __restrict__ cov_tot,
+                                  u64* __restrict__ sum_tot) {
+    __shared__ uint32_t warp32[32];
+    __shared__ u64 warp64[32];
+    const int64_t base = (int64_t)blockIdx.x * TILE
+                         + (int64_t)threadIdx.x * ITEMS;
+    uint32_t d[ITEMS];
+    uint32_t thread_dsum = 0;
+#pragma unroll
+    for (int k = 0; k < ITEMS; ++k) {
+        const int64_t i = base + k;
+        d[k] = i < n ? (uint32_t)delta[i] : 0u;
+        thread_dsum += d[k];
+    }
+    uint32_t block_dsum;
+    uint32_t run = block_exclusive_scan<uint32_t>(thread_dsum, warp32,
+                                                  &block_dsum)
+                   + delta_carry[blockIdx.x];
+
+    u64 plen[ITEMS];
+    u64 pdep[ITEMS];
+    u64 thread_cov = 0;
+    u64 thread_sum = 0;
+#pragma unroll
+    for (int k = 0; k < ITEMS; ++k) {
+        const int64_t i = base + k;
+        run += d[k];
+        int32_t dep = (int32_t)run;  // jnp.cumsum(..., dtype=int32)
+        if (wrap18) dep &= WRAP18_MASK;
+        u64 len = 0;
+        if (i < n) {
+            depth[i] = dep;
+            if (dep >= min_dep) {
+                const P nxt = i + 1 < n ? pos[i + 1] : pmax;
+                len = (u64)((int64_t)nxt - (int64_t)pos[i]);
+            }
+        }
+        plen[k] = len;
+        pdep[k] = len * (u64)(int64_t)dep;
+        thread_cov += plen[k];
+        thread_sum += pdep[k];
+    }
+    u64 block_cov, block_sum;
+    u64 cov = block_exclusive_scan<u64>(thread_cov, warp64, &block_cov);
+    u64 sum = block_exclusive_scan<u64>(thread_sum, warp64, &block_sum);
+#pragma unroll
+    for (int k = 0; k < ITEMS; ++k) {
+        const int64_t i = base + k;
+        cov += plen[k];
+        sum += pdep[k];
+        if (i < n) {
+            c_cov[i] = cov;
+            c_sum[i] = sum;
+        }
+    }
+    if (threadIdx.x == 0) {
+        cov_tot[blockIdx.x] = block_cov;
+        sum_tot[blockIdx.x] = block_sum;
+    }
+}
+
+__global__ void add_carry_kernel(int64_t n, const u64* __restrict__ cov_tot,
+                                 const u64* __restrict__ sum_tot,
+                                 u64* __restrict__ c_cov,
+                                 u64* __restrict__ c_sum) {
+    const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+    if (i >= n) return;
+    const int64_t blk = i / TILE;
+    c_cov[i] += cov_tot[blk];
+    c_sum[i] += sum_tot[blk];
+}
+
+// ---------------------------------------------------------------------
+// K3 eval_pair — replaces pandepth_tpu/device/sweep.py:eval_pair.
+// Bound on the H100: memory latency, not bandwidth. Each segment does
+// two lower-bound binary searches over pos_s (log2(E) ~ 24 dependent
+// loads each at 16.8M events) and four gathers; with ~300 segments the
+// work is tiny and the launch plus the dependent-load chain set the
+// time. One thread per segment, lo and hi in the same thread, so the
+// whole batch is one launch and the searches of different segments
+// overlap across warps; the upper levels of the search tree stay in L2.
+
+template <typename P>
+__device__ __forceinline__ void q_eval(const P* __restrict__ pos,
+                                       const int32_t* __restrict__ depth,
+                                       const int64_t* __restrict__ c_cov,
+                                       const int64_t* __restrict__ c_sum,
+                                       int64_t e, int32_t min_dep, P x,
+                                       u64* q_cov, u64* q_sum) {
+    int64_t lo = 0, hi = e;  // r = first index with pos[r] >= x
+    while (lo < hi) {
+        const int64_t mid = (lo + hi) >> 1;
+        if (pos[mid] < x) lo = mid + 1;
+        else hi = mid;
+    }
+    const int64_t r = lo;
+    u64 cov = r >= 2 ? (u64)c_cov[r - 2] : 0;
+    u64 sum = r >= 2 ? (u64)c_sum[r - 2] : 0;
+    if (r >= 1) {
+        const int32_t dep = depth[r - 1];
+        const u64 part = dep >= min_dep
+                             ? (u64)((int64_t)x - (int64_t)pos[r - 1]) : 0;
+        cov += part;
+        sum += part * (u64)(int64_t)dep;
+    }
+    *q_cov = cov;
+    *q_sum = sum;
+}
+
+template <typename P>
+__global__ void eval_pair_kernel(const P* __restrict__ pos,
+                                 const int32_t* __restrict__ depth,
+                                 const int64_t* __restrict__ c_cov,
+                                 const int64_t* __restrict__ c_sum,
+                                 int64_t e, int32_t min_dep,
+                                 const P* __restrict__ lo,
+                                 const P* __restrict__ hi, int64_t b,
+                                 int64_t* __restrict__ cover,
+                                 int64_t* __restrict__ dsum) {
+    const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+    if (i >= b) return;
+    u64 cov_lo, sum_lo, cov_hi, sum_hi;
+    q_eval<P>(pos, depth, c_cov, c_sum, e, min_dep, lo[i], &cov_lo, &sum_lo);
+    q_eval<P>(pos, depth, c_cov, c_sum, e, min_dep, hi[i], &cov_hi, &sum_hi);
+    cover[i] = (int64_t)(cov_hi - cov_lo);
+    dsum[i] = (int64_t)(sum_hi - sum_lo);
+}
+
+inline unsigned int point_blocks(int64_t n) {
+    const int64_t b = (n + POINT_THREADS - 1) / POINT_THREADS;
+    return (unsigned int)(b < (1 << 20) ? b : (1 << 20));
+}
+
+template <typename P>
+int sweep_scan_typed(const P* pos, const int32_t* delta, int64_t n,
+                     int32_t min_dep, int wrap18, P pmax,
+                     int32_t* depth, int64_t* c_cov, int64_t* c_sum,
+                     int64_t* scratch, cudaStream_t st) {
+    const int64_t nblk = (n + TILE - 1) / TILE;
+    u64* cov_tot = reinterpret_cast<u64*>(scratch);
+    u64* sum_tot = cov_tot + nblk;
+    uint32_t* dtot = reinterpret_cast<uint32_t*>(sum_tot + nblk);
+    delta_block_totals_kernel<<<(unsigned int)nblk, THREADS, 0, st>>>(
+        delta, n, dtot);
+    exclusive_scan_one_block<uint32_t><<<1, TOTALS_THREADS, 0, st>>>(
+        dtot, nblk);
+    scan_depth_kernel<P><<<(unsigned int)nblk, THREADS, 0, st>>>(
+        pos, delta, n, dtot, min_dep, wrap18, pmax, depth,
+        reinterpret_cast<u64*>(c_cov), reinterpret_cast<u64*>(c_sum),
+        cov_tot, sum_tot);
+    exclusive_scan_one_block<u64><<<1, TOTALS_THREADS, 0, st>>>(cov_tot,
+                                                                nblk);
+    exclusive_scan_one_block<u64><<<1, TOTALS_THREADS, 0, st>>>(sum_tot,
+                                                                nblk);
+    add_carry_kernel<<<(unsigned int)((n + THREADS - 1) / THREADS),
+                       THREADS, 0, st>>>(
+        n, cov_tot, sum_tot, reinterpret_cast<u64*>(c_cov),
+        reinterpret_cast<u64*>(c_sum));
+    return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// Elements per scan block; the wrapper sizes sweep_scan's scratch as
+// 3 * ceil(n / pdt_sweep_scan_tile()) int64 words.
+int64_t pdt_sweep_scan_tile(void) { return TILE; }
+
+int pdt_pack_events(int device, int tier, const void* starts,
+                    const void* ends, int64_t m, void* pos,
+                    int32_t* delta, void* stream) {
+    cudaError_t err = cudaSetDevice(device);
+    if (err != cudaSuccess) return (int)err;
+    if (m <= 0) return (int)cudaGetLastError();  // nothing to launch
+    cudaStream_t st = (cudaStream_t)stream;
+    const unsigned int blocks = point_blocks(2 * m);
+    if (tier == TIER_I32) {
+        pack_events_kernel<int32_t, int32_t><<<blocks, POINT_THREADS, 0, st>>>(
+            (const int32_t*)starts, (const int32_t*)ends, m, INT32_MAX,
+            (int32_t*)pos, delta);
+    } else if (tier == TIER_U32) {
+        pack_events_kernel<uint32_t, int64_t><<<blocks, POINT_THREADS, 0, st>>>(
+            (const uint32_t*)starts, (const uint32_t*)ends, m,
+            (int64_t)0xFFFFFFFFu, (int64_t*)pos, delta);
+    } else if (tier == TIER_I64) {
+        pack_events_kernel<int64_t, int64_t><<<blocks, POINT_THREADS, 0, st>>>(
+            (const int64_t*)starts, (const int64_t*)ends, m, INT64_MAX,
+            (int64_t*)pos, delta);
+    } else {
+        return (int)cudaErrorInvalidValue;
+    }
+    return (int)cudaGetLastError();
+}
+
+int pdt_sweep_scan(int device, int pos64, const void* pos,
+                   const int32_t* delta, int64_t n, int32_t min_dep,
+                   int wrap18, int64_t pmax, int32_t* depth, int64_t* c_cov,
+                   int64_t* c_sum, int64_t* scratch, void* stream) {
+    cudaError_t err = cudaSetDevice(device);
+    if (err != cudaSuccess) return (int)err;
+    if (n <= 0) return (int)cudaGetLastError();
+    cudaStream_t st = (cudaStream_t)stream;
+    if (pos64)
+        return sweep_scan_typed<int64_t>((const int64_t*)pos, delta, n,
+                                         min_dep, wrap18, pmax, depth, c_cov,
+                                         c_sum, scratch, st);
+    return sweep_scan_typed<int32_t>((const int32_t*)pos, delta, n, min_dep,
+                                     wrap18, (int32_t)pmax, depth, c_cov,
+                                     c_sum, scratch, st);
+}
+
+int pdt_eval_pair(int device, int pos64, const void* pos,
+                  const int32_t* depth, const int64_t* c_cov,
+                  const int64_t* c_sum, int64_t e, int32_t min_dep,
+                  const void* lo, const void* hi, int64_t b, int64_t* cover,
+                  int64_t* dsum, void* stream) {
+    cudaError_t err = cudaSetDevice(device);
+    if (err != cudaSuccess) return (int)err;
+    if (b <= 0 || e <= 0) return (int)cudaGetLastError();
+    cudaStream_t st = (cudaStream_t)stream;
+    const unsigned int blocks =
+        (unsigned int)((b + POINT_THREADS - 1) / POINT_THREADS);
+    if (pos64) {
+        eval_pair_kernel<int64_t><<<blocks, POINT_THREADS, 0, st>>>(
+            (const int64_t*)pos, depth, c_cov, c_sum, e, min_dep,
+            (const int64_t*)lo, (const int64_t*)hi, b, cover, dsum);
+    } else {
+        eval_pair_kernel<int32_t><<<blocks, POINT_THREADS, 0, st>>>(
+            (const int32_t*)pos, depth, c_cov, c_sum, e, min_dep,
+            (const int32_t*)lo, (const int32_t*)hi, b, cover, dsum);
+    }
+    return (int)cudaGetLastError();
+}
+
+}  // extern "C"
