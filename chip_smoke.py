@@ -10,25 +10,54 @@ Phases, one line each; any failure exits non-zero:
 2. build    nvcc build of pandepth_tpu_torch/csrc/sweep_kernels.cu
 3. setup    in a subprocess: libpancov_io, the native BAM feed, built
             and loaded (rebuilt with zlib alone where the libdeflate it
-            linked does not load); the golden BAM of tests/fixtures.py;
-            bench.py's own 8M-read, 3 Gb-shape BAM (12 x 250 Mb contigs,
-            150 bp reads, seed 42), generated into _smoke/ or reused
-4. kernels  pack_events, sweep_scan and eval_pair against their plain
-            PyTorch twins on the card, array-equal: at the main path's
-            shapes (the events and chr segments that
-            pandepth_tpu_torch.run.stage feeds from the fixture) and on
-            edge cases (every position tier, wrap18, min_dep=3, sentinel
-            tails); the time of each beside its twin's
-5. golden   the port's CLI on cuda over the golden fixture: the chr
-            table byte-equal to tests/golden/chr.chr.stat.gz.txt
-6. e2e      the port's CLI on cuda over the 8M-read fixture, twice in
-            this process (steady state: torch, CUDA and both libraries
-            already loaded) and once as a fresh
-            ``python -m pandepth_tpu_torch.cli`` (what a user waits for);
-            wall times, reads/s and the launches of every kernel in the
-            first run (all > 0); every chr table byte-equal to the
-            jax-free native host sweep's (pandepth_tpu.cli with
-            PANDEPTH_HOST_FINALIZE=1, also a subprocess)
+            linked does not load); the golden fixtures of
+            tests/fixtures.py (BAM, and the same records as SAM and as
+            CRAM, BED, GFFs, FASTA); bench.py's own 8M-read, 3 Gb-shape
+            BAM (12 x 250 Mb contigs, 150 bp reads, seed 42), generated
+            into _smoke/ or reused; an exome-sized BED over it (200,000
+            regions of 150-300 bp, seed 5)
+4. kernels  every kernel against its plain PyTorch twin on the card,
+            array-equal, at the shapes of every main path of phase 6:
+            the state that pandepth_tpu_torch.run.stage builds from the
+            fixture for chr (native: pack_events, sweep_scan, eval_pair,
+            eval_boundaries on 300 chr segments; timed), for bed (the
+            same on the exome BED's staged pairs and its 200,000
+            regions) and for the CIGAR feed (PANDEPTH_NO_NATIVE=1:
+            sweep_scan, eval_pair, eval_boundaries on every batch's
+            extract_events output); extract_events and eval_boundaries
+            on the fixture's first 2^20-read batch as
+            pandepth_tpu_torch.run.read_batches yields it (one op per
+            read; timed) and extract_events on a seeded 2^20-read
+            multi-op batch on the fixture's layout (timed); all of them
+            on edge cases (every position tier, wrap18, min_dep=3,
+            sentinel tails, every CIGAR op, filters, clipping, zero-op
+            reads, JAX-style padding, a 70,000-op read); the time of
+            each beside its twin's; the Python decoder's time per batch
+5. golden   the port's CLI on cuda over the golden fixtures: chr, bed,
+            gene and gene_gc from the BAM, native and with
+            PANDEPTH_NO_NATIVE=1, and chr from the SAM (both ways) and
+            the CRAM; every table byte-equal to tests/golden/
+6. e2e      the main paths at full size, each with every kernel count set
+            to 0 just before it and read just after, and every kernel it
+            runs launched at least once:
+            chr     the port's CLI over the 8M-read fixture, twice in this
+                    process and once as a fresh ``python -m
+                    pandepth_tpu_torch.cli``; wall times, reads/s; every
+                    chr table byte-equal to the jax-free native host
+                    sweep's (pandepth_tpu.cli with PANDEPTH_HOST_FINALIZE=1,
+                    a subprocess)
+            cigar   the same with PANDEPTH_NO_NATIVE=1 (the Python decoder
+                    and the extract_events kernel, >= 8 batches); its
+                    table byte-equal to the native run's
+            step    coverage_step (the fused single-device step) on the
+                    fixture's first batch and the chr bounds
+            bed     -b with the exome BED (indexed fetch windows, ranged
+                    native stream); the table byte-equal to the host
+                    sweep's
+7. profile  the cigar and bed runs once more under torch.profiler: host
+            wall, device time (the sum of every op's self device time),
+            the device's busy share, the largest ops, the peak device
+            memory; tables byte-equal to phase 6's
 
 Then one JSON line of kernel results, and last
 ``{"ok": true, "device": {...}}``. This process imports nothing but
@@ -51,8 +80,19 @@ CACHE = os.path.join(ROOT, "_smoke")
 SOURCE = "pandepth_tpu_torch/csrc/sweep_kernels.cu"
 REPLACES = {"pack_events": "pandepth_tpu/device/engine.py:43",
             "sweep_scan": "pandepth_tpu/device/sweep.py:38",
-            "eval_pair": "pandepth_tpu/device/sweep.py:66"}
+            "eval_pair": "pandepth_tpu/device/sweep.py:66",
+            "extract_events": "pandepth_tpu/device/events.py:40",
+            "eval_boundaries": "pandepth_tpu/device/sweep.py:89"}
+# what each main path must launch
+PATHS = {"chr": ("pack_events", "sweep_scan", "eval_pair"),
+         "cigar": ("extract_events", "sweep_scan", "eval_pair"),
+         "step": ("extract_events", "sweep_scan", "eval_boundaries"),
+         "bed": ("pack_events", "sweep_scan", "eval_pair")}
 N_READS = 8_000_000
+BATCH_READS = 1 << 20   # RunConfig.max_reads_per_batch
+N_BED = 200_000
+SENTINEL = 1 << 62      # JAX's extract_events sentinel
+COLS = ("tid", "pos", "flag", "mapq", "op_code", "op_len", "op_read")
 
 
 def say(phase: str, msg: str) -> None:
@@ -63,8 +103,8 @@ def fail(phase: str, msg: str) -> None:
     raise SystemExit(f"chip_smoke: {phase} failed: {msg}")
 
 
-def chr_table(prefix: str) -> bytes:
-    with gzip.open(prefix + ".chr.stat.gz", "rb") as fh:
+def table(prefix: str, kind: str = "chr") -> bytes:
+    with gzip.open(f"{prefix}.{kind}.stat.gz", "rb") as fh:
         return fh.read()
 
 
@@ -86,12 +126,17 @@ def cuda_ms(fn, iters: int = 10) -> float:
 
 
 # Set-up that needs the JAX package's jax-free modules directly, run in a
-# subprocess: argv = golden BAM path. The fixtures module is loaded by
-# path, because another installed package may own the name "tests".
+# subprocess: argv = golden directory, N_BED. The fixtures module is
+# loaded by path, because another installed package may own the name
+# "tests". Prints the 8M-read fixture's path, then the exome BED's.
 SETUP = r"""
 import importlib.util, os, subprocess, sys
 
+import numpy as np
+
 from pandepth_tpu.io import native
+from pandepth_tpu.io.bam_writer import cigar_str_to_ops
+from pandepth_tpu.io.cram_writer import write_cram
 
 try:
     lib = native.load_library()
@@ -112,29 +157,76 @@ if lib is None:
 
 spec = importlib.util.spec_from_file_location(
     "pandepth_test_fixtures", os.path.join("tests", "fixtures.py"))
-fixtures = importlib.util.module_from_spec(spec)
-spec.loader.exec_module(fixtures)
-fixtures.make_bam(sys.argv[1], n=800, seed=11)
+fx = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(fx)
+d, n_bed = sys.argv[1], int(sys.argv[2])
+recs = fx.make_bam(os.path.join(d, "golden.bam"), n=800, seed=11)
+fx.make_bed(os.path.join(d, "t.bed"))
+fx.make_gff(os.path.join(d, "t.gff"))
+fx.make_gff(os.path.join(d, "safe.gff"), overhang=False)
+fx.make_fasta(os.path.join(d, "ref.fa"))
+names = [c[0] for c in fx.CONTIGS]
+lengths = [c[1] for c in fx.CONTIGS]
+# the golden records as SAM text (no index: every read counts) and as
+# CRAM, which canonicalizes =/X to M (the same depth)
+with open(os.path.join(d, "golden.sam"), "w") as fh:
+    fh.write("@HD\tVN:1.6\tSO:coordinate\n")
+    for name, ln in fx.CONTIGS:
+        fh.write(f"@SQ\tSN:{name}\tLN:{ln}\n")
+    for i, (tid, pos, flag, mapq, cigar) in enumerate(recs):
+        n_seq = sum(l for op, l in cigar_str_to_ops(cigar)
+                    if op in (0, 1, 4, 7, 8)) if cigar != "*" else 0
+        fh.write(f"r{i}\t{flag}\t{names[tid]}\t{pos + 1}\t{mapq}\t{cigar}"
+                 f"\t*\t0\t0\t{'A' * n_seq if n_seq else '*'}\t*\n")
+write_cram(os.path.join(d, "golden.cram"), names, lengths,
+           [(t, p, f, q, c.replace("=", "M").replace("X", "M"))
+            for t, p, f, q, c in recs])
 
 import bench
 
 print(bench.ensure_fixture())
+bed = os.path.join(os.path.dirname(bench.ensure_fixture()),
+                   f"exome_{n_bed}.bed")
+if not os.path.exists(bed):
+    rng = np.random.RandomState(5)
+    tid = np.sort(rng.randint(0, len(bench.GENOME), n_bed))
+    ln = np.array([g[1] for g in bench.GENOME])[tid]
+    start = (rng.rand(n_bed) * (ln - 400)).astype(np.int64)
+    end = start + rng.randint(150, 301, n_bed)
+    order = np.lexsort((start, tid))
+    with open(bed + ".tmp", "w") as fh:
+        for k in order:
+            fh.write(f"{bench.GENOME[tid[k]][0]}\t{start[k]}\t{end[k]}\n")
+    os.replace(bed + ".tmp", bed)
+print(bed)
 """
 
 
-def setup(golden_bam: str) -> str:
-    """Native library, golden BAM and bench.py's 8M-read fixture (made by
-    bench.ensure_fixture itself, seed 42); returns the fixture's path."""
+def setup(golden_dir: str):
+    """Native library, golden fixtures, bench.py's 8M-read fixture (made
+    by bench.ensure_fixture itself, seed 42) and the exome BED; returns
+    (fixture path, BED path)."""
     env = dict(os.environ, PANDEPTH_BENCH_DIR=CACHE,
                PANDEPTH_BENCH_READS=str(N_READS))
-    r = subprocess.run([sys.executable, "-c", SETUP, golden_bam], cwd=ROOT,
-                       env=env, capture_output=True, text=True)
+    r = subprocess.run([sys.executable, "-c", SETUP, golden_dir,
+                        str(N_BED)], cwd=ROOT, env=env, capture_output=True,
+                       text=True)
     if r.returncode != 0:
         fail("setup", f"exited {r.returncode}: {r.stderr[-3000:]}")
     lines = r.stdout.strip().splitlines()
-    for line in lines[:-1]:
+    for line in lines[:-2]:
         say("setup", line)
-    return lines[-1]
+    return lines[-2], lines[-1]
+
+
+class no_native:
+    """PANDEPTH_NO_NATIVE=1 inside the block: the Python decoders."""
+
+    def __enter__(self):
+        os.environ["PANDEPTH_NO_NATIVE"] = "1"
+
+    def __exit__(self, *exc):
+        os.environ.pop("PANDEPTH_NO_NATIVE", None)
 
 
 class KernelCheck:
@@ -145,6 +237,7 @@ class KernelCheck:
         self.cases = {k: 0 for k in REPLACES}
         self.ms = {}
         self.plain_ms = {}
+        self.notes = []
 
     def compare(self, name: str, got, want, what: str) -> None:
         import torch
@@ -160,11 +253,20 @@ class KernelCheck:
                 fail("kernels", f"{name} {what}: differs from its twin")
         self.cases[name] += 1
 
-    def case(self, raw_s, raw_e, sentinel: int, lo, hi, min_dep: int,
-             wrap18: bool, what: str, timed: bool = False) -> None:
-        """One input through all three kernels and their twins."""
-        import torch
+    def time(self, name: str, kernel, twin, note: str = "") -> None:
+        """The kernel's and the twin's times; with ``note`` they go to a
+        note line instead of the kernel's JSON entry."""
+        ms, plain_ms = cuda_ms(kernel), cuda_ms(twin)
+        if note:
+            self.notes.append(f"{name} on {note}: {ms:.4f} ms, twin "
+                              f"{plain_ms:.4f} ms")
+        else:
+            self.ms[name], self.plain_ms[name] = ms, plain_ms
 
+    def sweep_case(self, raw_s, raw_e, sentinel: int, lo, hi, min_dep: int,
+                   wrap18: bool, what: str, timed: bool = False) -> None:
+        """Staged start/end pairs through pack_events and its twin, then
+        :meth:`state_case` on the packed events."""
         from pandepth_tpu_torch.device import kernels, sweep
         from pandepth_tpu_torch.device.convert import tier_for_max
 
@@ -172,7 +274,21 @@ class KernelCheck:
         got = kernels.pack_events(raw_s, raw_e, tier)
         want = sweep.pack_events_reference(raw_s, raw_e, sentinel)
         self.compare("pack_events", got, want, what)
-        pos, delta = got
+        if timed:
+            self.time("pack_events",
+                      lambda: kernels.pack_events(raw_s, raw_e, tier),
+                      lambda: sweep.pack_events_reference(raw_s, raw_e,
+                                                          sentinel))
+        self.state_case(*got, sentinel, lo, hi, min_dep, wrap18, what, timed)
+
+    def state_case(self, pos, delta, sentinel: int, lo, hi, min_dep: int,
+                   wrap18: bool, what: str, timed: bool = False) -> None:
+        """Events through the library's stable sort, then sweep_scan,
+        eval_pair and eval_boundaries and their twins."""
+        import torch
+
+        from pandepth_tpu_torch.device import kernels, sweep
+
         pos_s, order = torch.sort(pos, stable=True)
         delta_s = delta[order]
         got = kernels.sweep_scan(pos_s, delta_s, min_dep, wrap18, sentinel)
@@ -184,31 +300,61 @@ class KernelCheck:
         want = sweep.eval_pair_reference(pos_s, depth, c_cov, c_sum,
                                          min_dep, lo, hi)
         self.compare("eval_pair", got, want, what)
+        self.boundaries_case(pos_s, depth, c_cov, c_sum, min_dep,
+                             torch.cat([lo, hi]), what)
         if not timed:
             return
-        self.ms["pack_events"] = cuda_ms(
-            lambda: kernels.pack_events(raw_s, raw_e, tier))
-        self.plain_ms["pack_events"] = cuda_ms(
-            lambda: sweep.pack_events_reference(raw_s, raw_e, sentinel))
-        self.ms["sweep_scan"] = cuda_ms(
-            lambda: kernels.sweep_scan(pos_s, delta_s, min_dep, wrap18,
-                                       sentinel))
-        self.plain_ms["sweep_scan"] = cuda_ms(
-            lambda: sweep.sweep_scan_reference(pos_s, delta_s, min_dep,
-                                               wrap18, sentinel))
-        self.ms["eval_pair"] = cuda_ms(
-            lambda: kernels.eval_pair(pos_s, depth, c_cov, c_sum, min_dep,
-                                      lo, hi))
-        self.plain_ms["eval_pair"] = cuda_ms(
-            lambda: sweep.eval_pair_reference(pos_s, depth, c_cov, c_sum,
-                                              min_dep, lo, hi))
-        self.sort_ms = cuda_ms(lambda: torch.sort(pos, stable=True))
+        self.time("sweep_scan",
+                  lambda: kernels.sweep_scan(pos_s, delta_s, min_dep,
+                                             wrap18, sentinel),
+                  lambda: sweep.sweep_scan_reference(pos_s, delta_s,
+                                                     min_dep, wrap18,
+                                                     sentinel))
+        self.time("eval_pair",
+                  lambda: kernels.eval_pair(pos_s, depth, c_cov, c_sum,
+                                            min_dep, lo, hi),
+                  lambda: sweep.eval_pair_reference(pos_s, depth, c_cov,
+                                                    c_sum, min_dep, lo, hi))
+        sort_ms = cuda_ms(lambda: torch.sort(pos, stable=True))
+        self.notes.append(f"library stable sort of the native main path's "
+                          f"{pos.shape[0]} events: {sort_ms:.4f} ms")
+
+    def extract_case(self, cols, offsets, limits, flags_mask: int,
+                     min_mapq: int, sentinel: int, pos_dtype, what: str,
+                     timed: bool = False, note: str = ""):
+        """One batch through extract_events and its twin; returns the
+        kernel's events."""
+        from pandepth_tpu_torch.device import events, kernels
+
+        args = (*cols, offsets, limits, flags_mask, min_mapq)
+        got = kernels.extract_events(*args, sentinel, pos_dtype)
+        want = events.extract_events_reference(*args, sentinel, pos_dtype)
+        self.compare("extract_events", got, want, what)
+        if timed:
+            self.time("extract_events",
+                      lambda: kernels.extract_events(*args, sentinel,
+                                                     pos_dtype),
+                      lambda: events.extract_events_reference(
+                          *args, sentinel, pos_dtype), note)
+        return got
+
+    def boundaries_case(self, pos_s, depth, c_cov, c_sum, min_dep: int, x,
+                        what: str, timed: bool = False) -> None:
+        from pandepth_tpu_torch.device import kernels, sweep
+
+        args = (pos_s, depth, c_cov, c_sum, min_dep, x)
+        self.compare("eval_boundaries", kernels.eval_boundaries(*args),
+                     sweep.eval_boundaries_reference(*args), what)
+        if timed:
+            self.time("eval_boundaries",
+                      lambda: kernels.eval_boundaries(*args),
+                      lambda: sweep.eval_boundaries_reference(*args))
 
 
-def edge_cases(check: KernelCheck, dev) -> None:
+def sweep_edge_cases(check: KernelCheck, dev) -> None:
     """Random events on every tier with duplicates, sentinel tails, a
     deep pileup past 18 bits, and queries inside, on and past the
-    events."""
+    events: pack_events, sweep_scan, eval_pair and eval_boundaries."""
     import numpy as np
     import torch
 
@@ -237,30 +383,265 @@ def edge_cases(check: KernelCheck, dev) -> None:
             hi = torch.from_numpy(q[1::2].astype(q_dt)).to(dev)
             for min_dep in (1, 3):
                 for wrap18 in (False, True):
-                    check.case(raw_s, raw_e, sentinel, lo, hi, min_dep,
-                               wrap18, f"{np.dtype(np_dt).name} "
-                               f"pairs={n_pairs} min_dep={min_dep} "
-                               f"wrap18={wrap18}")
+                    check.sweep_case(raw_s, raw_e, sentinel, lo, hi,
+                                     min_dep, wrap18,
+                                     f"{np.dtype(np_dt).name} "
+                                     f"pairs={n_pairs} min_dep={min_dep} "
+                                     f"wrap18={wrap18}")
 
 
-def main_path_case(check: KernelCheck, bam: str, dev):
-    """The fixture's own staged events and chr segments, as the port's
-    run stages them for the kernels; returns (events, segments, tier
-    name)."""
+def device_cols(batch, dev):
+    """A ReadBatch's seven int32 columns on ``dev``."""
+    import numpy as np
+    import torch
+
+    return [torch.from_numpy(np.asarray(getattr(batch, c), np.int32)).to(dev)
+            for c in COLS]
+
+
+def extract_edge_cases(check: KernelCheck, dev) -> None:
+    """extract_events on JAX's int64 output and on every engine tier,
+    min_mapq -1/0/20, two flag masks, JAX-style padding and a 70,000-op
+    read."""
+    import numpy as np
+    import torch
+
+    from pandepth_tpu_torch.synth import jax_padded, make_batch
+
+    tiers = [([5000, 3200, 700], torch.int32, (1 << 31) - 1),
+             ([1_900_000_000, 1_500_000_000], torch.int64, (1 << 32) - 1),
+             ([3_000_000_000, 2_500_000_000], torch.int64, (1 << 63) - 1)]
+    seed = 40
+    for lengths, out_dtype, tier_sentinel in tiers:
+        sizes = np.asarray(lengths, np.int64) + 512   # GenomeLayout's pad
+        offsets = np.concatenate([[0], np.cumsum(sizes)[:-1]])
+        lay = [torch.from_numpy(a.astype(np.int64)).to(dev)
+               for a in (offsets, offsets + sizes)]
+        for n, long_ops, pad in ((3000, 0, False), (3000, 0, True),
+                                 (500, 70_000, True)):
+            seed += 1
+            b = make_batch(lengths, n, seed, long_read_ops=long_ops)
+            cols = device_cols(jax_padded(b) if pad else b, dev)
+            for min_mapq in (-1, 0, 20):
+                for mask in (1796, 4):
+                    for sentinel, dt in ((SENTINEL, torch.int64),
+                                         (tier_sentinel, out_dtype)):
+                        check.extract_case(
+                            cols, *lay, mask, min_mapq, sentinel, dt,
+                            f"lengths={lengths} n={n} long={long_ops} "
+                            f"pad={pad} q={min_mapq} x={mask} "
+                            f"sentinel={sentinel}")
+
+
+def main_path_states(check: KernelCheck, bam: str, bed: str, dev):
+    """The device state that the port's run stages for each counted path,
+    through the kernels and their twins: chr (native; staged pairs and
+    the chr segments, timed), bed (native; the exome BED's staged pairs
+    and its regions) and cigar (PANDEPTH_NO_NATIVE=1; every batch's
+    extract_events output, dead slots included, and the chr segments).
+    Returns a description of each path's shape."""
+    import torch
+
     from pandepth_tpu_torch.cli import parse_args
     from pandepth_tpu_torch.run import stage
 
-    st = stage(parse_args(["pandepth", "-i", bam, "-o", os.devnull]), dev)
-    eng, t = st.engine, st.targets
-    raw_s, raw_e = eng.upload_staged()
-    lo, hi = eng.segment_bounds(t.gene_tid[t.seg_gene], t.seg_start,
-                                t.seg_end)
-    q_lo, q_hi = eng.queries(lo, hi)
-    check.case(raw_s, raw_e, eng.pos_sentinel, q_lo, q_hi, eng.min_dep,
-               eng.wrap18, f"main path ({eng.pos_dtype.__name__} tier)",
-               timed=True)
-    return 2 * int(raw_s.shape[0]), int(q_lo.shape[0]), \
-        eng.pos_dtype.__name__
+    shapes = {}
+    for path, extra in (("chr", []), ("bed", ["-b", bed]), ("cigar", [])):
+        cfg = parse_args(["pandepth", "-i", bam, *extra, "-o", os.devnull])
+        if path == "cigar":
+            with no_native():
+                st = stage(cfg, dev)
+        else:
+            st = stage(cfg, dev)
+        eng, t = st.engine, st.targets
+        lo, hi = eng.segment_bounds(t.gene_tid[t.seg_gene], t.seg_start,
+                                    t.seg_end)
+        q_lo, q_hi = eng.queries(lo, hi)
+        what = f"{path} path ({eng.pos_dtype.__name__} tier)"
+        args = (eng.pos_sentinel, q_lo, q_hi, eng.min_dep, eng.wrap18, what)
+        if path == "cigar":
+            cp, cd = eng._event_chunks()
+            pos, delta = torch.cat(cp), torch.cat(cd)
+            check.state_case(pos, delta, *args)
+            n_events = int(pos.shape[0])
+        else:
+            raw_s, raw_e = eng.upload_staged()
+            check.sweep_case(raw_s, raw_e, *args, timed=path == "chr")
+            n_events = 2 * int(raw_s.shape[0])
+        shapes[path] = (f"{path} path ({n_events} events, "
+                        f"{int(q_lo.shape[0])} segments, "
+                        f"{eng.pos_dtype.__name__} tier)")
+        del st, eng, args
+    return shapes
+
+
+class FirstBatch:
+    """The CIGAR feed's first batch of the fixture on the card: its seven
+    columns, the layout, the chr segments' global bounds (int64) and the
+    engine's tier. Reading it runs the Python decoder over the whole
+    file; ``batch_s`` holds the seconds of each batch (the first one's
+    include the whole-file inflate)."""
+
+    def __init__(self, bam: str, dev):
+        import numpy as np
+        import torch
+
+        from pandepth_tpu_torch.cli import parse_args
+        from pandepth_tpu_torch.run import prepare, read_batches
+
+        cfg = parse_args(["pandepth", "-i", bam, "-o", os.devnull])
+        self.batch_s = []
+        with no_native():
+            st = prepare(cfg, dev)
+            t0 = time.perf_counter()
+            for i, b in enumerate(read_batches(bam, cfg, st.regions)):
+                self.batch_s.append(time.perf_counter() - t0)
+                if i == 0:
+                    first = b
+                t0 = time.perf_counter()
+        b = first
+        eng, t = st.engine, st.targets
+        self.n, self.m = b.n_reads, b.n_total_ops
+        self.cols = device_cols(b, dev)
+        self.lengths = eng.layout.lengths
+        self.offsets = torch.from_numpy(eng.layout.offsets).to(dev)
+        self.limits = torch.from_numpy(eng.layout.limits).to(dev)
+        lo, hi = eng.segment_bounds(t.gene_tid[t.seg_gene], t.seg_start,
+                                    t.seg_end)
+        self.lo = torch.from_numpy(lo.astype(np.int64)).to(dev)
+        self.hi = torch.from_numpy(hi.astype(np.int64)).to(dev)
+        self.sentinel = eng.pos_sentinel
+        self.dtype = eng._dev_dtype
+        self.tier = eng.pos_dtype.__name__
+        self.flags_mask, self.min_mapq = cfg.flags, cfg.min_mapq
+
+
+def main_path_cigar(check: KernelCheck, fb: FirstBatch, dev) -> None:
+    """extract_events (the engine's tier, timed, and JAX's int64 output)
+    and eval_boundaries (int64 sweep state of that batch, the 300 chr
+    bounds, timed) against their twins at the CIGAR feed's shapes; then
+    extract_events on a seeded multi-op batch of as many reads on the
+    fixture's layout (timed), where the per-read rebase is not trivial."""
+    import torch
+
+    from pandepth_tpu_torch.device import sweep
+    from pandepth_tpu_torch.synth import make_batch
+
+    what = f"first batch ({fb.n} reads, {fb.m} ops, {fb.tier} tier)"
+    check.extract_case(fb.cols, fb.offsets, fb.limits, fb.flags_mask,
+                       fb.min_mapq, fb.sentinel, fb.dtype, what, timed=True)
+    ev = check.extract_case(fb.cols, fb.offsets, fb.limits, fb.flags_mask,
+                            fb.min_mapq, SENTINEL, torch.int64,
+                            what + ", JAX's int64 output")
+    st = sweep.sort_events(*ev)
+    x = torch.cat([fb.lo, fb.hi])
+    check.boundaries_case(*st[:4], 1, x, what + ", chr bounds",
+                          timed=True)
+    b = make_batch(fb.lengths, fb.n, seed=9)
+    what = (f"a seeded multi-op batch ({b.n_reads} reads, {b.n_total_ops} "
+            f"ops, 0-8 per read, every op code, {fb.tier} tier)")
+    check.extract_case(device_cols(b, dev), fb.offsets, fb.limits,
+                       fb.flags_mask, fb.min_mapq, fb.sentinel, fb.dtype,
+                       what, timed=True, note=what)
+
+
+def step_twin(fb: FirstBatch):
+    """coverage_step as the composition of the plain twins."""
+    from pandepth_tpu_torch.device import events, sweep
+
+    ev = events.extract_events_reference(*fb.cols, fb.offsets, fb.limits,
+                                         fb.flags_mask, fb.min_mapq)
+    st = sweep.sort_events_reference(*ev)
+    ql = sweep.eval_boundaries_reference(*st[:4], 1, fb.lo)
+    qh = sweep.eval_boundaries_reference(*st[:4], 1, fb.hi)
+    return qh[0] - ql[0], qh[1] - ql[1]
+
+
+def counted(kernels, path: str, fn):
+    """Run one main path with every kernel count set to 0 just before it;
+    fail unless each kernel of the path launched. Returns (result,
+    counts, wall seconds)."""
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    out = fn()
+    wall = time.perf_counter() - t0
+    runs = dict(kernels.launches)
+    missing = [k for k in PATHS[path] if runs[k] < 1]
+    if missing:
+        fail("e2e", f"{path}: {missing} not launched on the path: {runs}")
+    return out, runs, wall
+
+
+def profiled(fn):
+    """``fn`` once under torch.profiler. Returns (host wall s, device ms:
+    the sum of the device's kernels and copies, the largest of them as
+    (name, ms), peak device memory allocated in bytes)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    # device-side events only (host ops would count their kernels twice);
+    # "Activity Buffer Request" is the profiler's own overhead
+    ops = sorted(((e.key, e.self_device_time_total / 1e3)
+                  for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA
+                  and e.key != "Activity Buffer Request"
+                  and e.self_device_time_total > 0), key=lambda o: -o[1])
+    return (wall, sum(ms for _, ms in ops), ops[:6],
+            torch.cuda.max_memory_allocated())
+
+
+def golden(port_main, gdir: str, dev) -> int:
+    """Every golden configuration the slice runs; returns the count."""
+    gold = os.path.join(ROOT, "tests", "golden")
+    modes = {"chr": [], "bed": ["-b", "{d}/t.bed"],
+             "gene": ["-g", "{d}/t.gff", "-f", "CDS"],
+             "gene_gc": ["-g", "{d}/safe.gff", "-c", "-r", "{d}/ref.fa"]}
+    runs = [(f"{m} bam {way}", "golden.bam", m, way)
+            for m in modes for way in ("native", "no_native")]
+    runs += [("chr sam native", "golden.sam", "chr", "native"),
+             ("chr sam no_native", "golden.sam", "chr", "no_native"),
+             ("chr cram", "golden.cram", "chr", "native")]
+    for what, inp, mode, way in runs:
+        kind = "gene" if mode.startswith("gene") else mode
+        args = ["pandepth", "-i", os.path.join(gdir, inp), "-o",
+                os.path.join(gdir, "out"),
+                *(a.format(d=gdir) for a in modes[mode])]
+        if way == "no_native":
+            with no_native():
+                rc = port_main(args, device=dev)
+        else:
+            rc = port_main(args, device=dev)
+        if rc != 0:
+            fail("golden", f"{what}: the port's CLI exited {rc}")
+        with open(os.path.join(gold, f"{mode}.{kind}.stat.gz.txt"),
+                  "rb") as fh:
+            if table(os.path.join(gdir, "out"), kind) != fh.read():
+                fail("golden", f"{what}: table differs from the golden "
+                               f"file")
+    return len(runs)
+
+
+def host_sweep(args, out: str):
+    """The JAX package's jax-free native host sweep as a CLI process;
+    returns its wall seconds."""
+    env = dict(os.environ, PANDEPTH_HOST_FINALIZE="1")
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "pandepth_tpu.cli", *args,
+                        "-o", out], cwd=ROOT, env=env, capture_output=True,
+                       text=True)
+    wall = time.perf_counter() - t0
+    if r.returncode != 0:
+        fail("e2e", f"host sweep exited {r.returncode}: {r.stderr[-2000:]}")
+    return wall
 
 
 def main() -> int:
@@ -273,11 +654,13 @@ def main() -> int:
     try:
         from pandepth_tpu_torch.cli import main as port_main
         from pandepth_tpu_torch.device import kernels
+        from pandepth_tpu_torch.device.step import coverage_step
     except ImportError as e:
         print(f"chip_smoke: run it from the repository root ({e})",
               file=sys.stderr)
         return 1
     dev = torch.device("cuda")
+    t_start = time.perf_counter()
 
     os.makedirs(CACHE, exist_ok=True)
 
@@ -302,55 +685,62 @@ def main() -> int:
         if "Used" in line or "spill" in line:
             print("  " + line.strip(), flush=True)
 
+    paths = {}
     with tempfile.TemporaryDirectory(dir=CACHE) as tmp:
         # 3. set-up
         t0 = time.perf_counter()
-        gbam = os.path.join(tmp, "golden.bam")
-        bam = setup(gbam)
-        say("setup", f"{bam} ({os.path.getsize(bam)} bytes) "
+        bam, bed = setup(tmp)
+        say("setup", f"{bam} ({os.path.getsize(bam)} bytes), {bed} "
                      f"{time.perf_counter() - t0:.1f} s")
 
         # 4. kernels against their twins
         check = KernelCheck()
-        edge_cases(check, dev)
-        n_events, n_segs, tier = main_path_case(check, bam, dev)
+        sweep_edge_cases(check, dev)
+        extract_edge_cases(check, dev)
+        states = main_path_states(check, bam, bed, dev)
+        t0 = time.perf_counter()
+        fb = FirstBatch(bam, dev)
+        say("kernels", f"the fixture's {len(fb.batch_s)} batches through the "
+                       f"Python decoder alone (no device) "
+                       f"{time.perf_counter() - t0:.3f} s: the first "
+                       f"(whole-file inflate and its decode) "
+                       f"{fb.batch_s[0]:.3f} s, the other "
+                       f"{len(fb.batch_s) - 1} {sum(fb.batch_s[1:]):.3f} s")
+        main_path_cigar(check, fb, dev)
         torch.cuda.synchronize()
+        shapes = {k: states["chr"]
+                  for k in ("pack_events", "sweep_scan", "eval_pair")}
+        shapes["extract_events"] = (f"first batch ({fb.n} reads, {fb.m} "
+                                    f"ops, {fb.tier} tier)")
+        shapes["eval_boundaries"] = (f"first batch's {2 * fb.m} int64 "
+                                     f"events, {2 * fb.lo.shape[0]} bounds")
         for k in REPLACES:
             say("kernels", f"{k}: {check.cases[k]} cases array-equal to "
-                           f"the twin; main path ({n_events} events, "
-                           f"{n_segs} segments, {tier} tier) "
-                           f"{check.ms[k]:.4f} ms, twin "
-                           f"{check.plain_ms[k]:.4f} ms")
-        say("kernels", f"library stable sort at the main path: "
-                       f"{check.sort_ms:.4f} ms")
+                           f"the twin; {shapes[k]} {check.ms[k]:.4f} ms, "
+                           f"twin {check.plain_ms[k]:.4f} ms")
+        say("kernels", f"also array-equal at {states['bed']} and "
+                       f"{states['cigar']}")
+        for note in check.notes:
+            say("kernels", note)
 
         # 5. golden
-        if port_main(["pandepth", "-i", gbam, "-o",
-                      os.path.join(tmp, "golden")], device=dev) != 0:
-            fail("golden", "the port's CLI exited non-zero")
-        with open(os.path.join(ROOT, "tests", "golden",
-                               "chr.chr.stat.gz.txt"), "rb") as fh:
-            if chr_table(os.path.join(tmp, "golden")) != fh.read():
-                fail("golden", "chr table differs from the golden file")
-        say("golden", "chr table byte-equal to "
-                      "tests/golden/chr.chr.stat.gz.txt")
+        n_gold = golden(port_main, tmp, dev)
+        say("golden", f"{n_gold} tables byte-equal to tests/golden/ (chr, "
+                      f"bed, gene, gene_gc from the BAM native and "
+                      f"no-native; chr from SAM both ways and CRAM)")
 
-        # 6. the real-size main path: the counted run, in this process
-        kernels.reset_launches()
+        # 6. the real-size main paths, each counted on its own
+        def cli(out, *extra):
+            rc = port_main(["pandepth", "-i", bam, "-o",
+                            os.path.join(tmp, out), *extra], device=dev)
+            if rc != 0:
+                fail("e2e", f"the port's CLI ({out}) exited {rc}")
+
+        # chr, native stream
+        _, paths["chr"], wall = counted(kernels, "chr",
+                                        lambda: cli("port", "-v"))
         t0 = time.perf_counter()
-        rc = port_main(["pandepth", "-i", bam, "-o",
-                        os.path.join(tmp, "port"), "-v"], device=dev)
-        wall = time.perf_counter() - t0
-        runs = dict(kernels.launches)
-        if rc != 0:
-            fail("e2e", f"the port's CLI exited {rc}")
-        if min(runs.values()) < 1:
-            fail("e2e", f"a kernel was not launched on the main path: "
-                        f"{runs}")
-        t0 = time.perf_counter()
-        if port_main(["pandepth", "-i", bam, "-o",
-                      os.path.join(tmp, "port2")], device=dev) != 0:
-            fail("e2e", "the port's second run exited non-zero")
+        cli("port2")
         wall2 = time.perf_counter() - t0
         # a user's run: a fresh process that imports torch, makes its CUDA
         # context and loads both libraries (the kernels are built already)
@@ -365,36 +755,90 @@ def main() -> int:
                         f"{cold.stderr[-2000:]}")
         cold_run = [ln for ln in cold.stderr.splitlines()
                     if ln.startswith("INFO: wall=")]
-        env = dict(os.environ, PANDEPTH_HOST_FINALIZE="1")
-        t0 = time.perf_counter()
-        host = subprocess.run([sys.executable, "-m", "pandepth_tpu.cli",
-                               "-i", bam, "-o", os.path.join(tmp, "host")],
-                              cwd=ROOT, env=env, capture_output=True,
-                              text=True)
-        host_wall = time.perf_counter() - t0
-        if host.returncode != 0:
-            fail("e2e", f"host sweep exited {host.returncode}: "
-                        f"{host.stderr[-2000:]}")
-        port_tab = chr_table(os.path.join(tmp, "port"))
+        host_wall = host_sweep(["-i", bam], os.path.join(tmp, "host"))
+        port_tab = table(os.path.join(tmp, "port"))
         for other in ("host", "port2", "cold"):
-            if chr_table(os.path.join(tmp, other)) != port_tab:
+            if table(os.path.join(tmp, other)) != port_tab:
                 fail("e2e", f"chr table of the {other} run differs from "
                             f"the port's")
         say("e2e", f"chr mode, {N_READS} reads, CLI process (user wall): "
                    f"{cold_wall:.3f} s ({N_READS / cold_wall:.0f} reads/s); "
                    f"its run alone {cold_run[-1][6:] if cold_run else '?'}")
-        say("e2e", f"in this process (steady state): {wall:.3f} s "
+        say("e2e", f"chr in this process (steady state): {wall:.3f} s "
                    f"({N_READS / wall:.0f} reads/s), again {wall2:.3f} s "
-                   f"({N_READS / wall2:.0f} reads/s); launches {runs}")
-        say("e2e", f"all chr tables byte-equal to the host sweep's "
+                   f"({N_READS / wall2:.0f} reads/s); launches "
+                   f"{paths['chr']}")
+        say("e2e", f"chr tables byte-equal to the host sweep's "
                    f"({len(port_tab.splitlines())} lines; host sweep CLI "
                    f"process {host_wall:.3f} s)")
 
+        # chr through the Python decoder and the CIGAR feed
+        with no_native():
+            _, paths["cigar"], wall = counted(
+                kernels, "cigar", lambda: cli("cigar", "-v"))
+        n_batches = paths["cigar"]["extract_events"]
+        if n_batches < -(-N_READS // BATCH_READS):
+            fail("e2e", f"cigar: extract_events launched {n_batches} "
+                        f"times, fewer than the fixture's batches")
+        if table(os.path.join(tmp, "cigar")) != port_tab:
+            fail("e2e", "chr table of the PANDEPTH_NO_NATIVE=1 run differs "
+                        "from the native run's")
+        say("e2e", f"cigar (PANDEPTH_NO_NATIVE=1), {N_READS} reads in this "
+                   f"process: {wall:.3f} s ({N_READS / wall:.0f} reads/s); "
+                   f"launches {paths['cigar']}; chr table byte-equal to "
+                   f"the native run's")
+
+        # the fused single-device step
+        (cov, dsum), paths["step"], wall = counted(
+            kernels, "step", lambda: [t.cpu() for t in coverage_step(
+                *fb.cols, fb.offsets, fb.limits, fb.lo, fb.hi,
+                flags_mask=fb.flags_mask, min_mapq=fb.min_mapq)])
+        want = [t.cpu() for t in step_twin(fb)]
+        if not (torch.equal(cov, want[0]) and torch.equal(dsum, want[1])):
+            fail("e2e", "step: coverage_step differs from the composition "
+                        "of the twins")
+        if int(cov.sum()) <= 0:
+            fail("e2e", "step: no coverage")
+        say("e2e", f"step: coverage_step on the first batch and "
+                   f"{cov.shape[0]} chr bounds {wall * 1e3:.3f} ms (first "
+                   f"call, host clock); launches {paths['step']}; equal to "
+                   f"the composition of the twins")
+
+        # -b with an exome-sized BED
+        _, paths["bed"], wall = counted(
+            kernels, "bed", lambda: cli("bedport", "-b", bed, "-v"))
+        host_wall = host_sweep(["-i", bam, "-b", bed],
+                               os.path.join(tmp, "bedhost"))
+        bed_tab = table(os.path.join(tmp, "bedport"), "bed")
+        if bed_tab != table(os.path.join(tmp, "bedhost"), "bed"):
+            fail("e2e", "bed: table differs from the host sweep's")
+        say("e2e", f"bed ({N_BED} regions): {wall:.3f} s in this process; "
+                   f"launches {paths['bed']}; table byte-equal to the host "
+                   f"sweep's ({len(bed_tab.splitlines())} lines; host sweep "
+                   f"CLI process {host_wall:.3f} s)")
+
+        # 7. profile: the cigar and bed runs once more, traced
+        with no_native():
+            prof_cigar = profiled(lambda: cli("cigarprof"))
+        prof_bed = profiled(lambda: cli("bedprof", "-b", bed))
+        if table(os.path.join(tmp, "cigarprof")) != port_tab or \
+                table(os.path.join(tmp, "bedprof"), "bed") != bed_tab:
+            fail("profile", "a profiled run's table differs from phase 6's")
+        for path, (pwall, dev_ms, ops, peak) in (("cigar", prof_cigar),
+                                                 ("bed", prof_bed)):
+            top = "; ".join(f"{name[:60]} {ms:.3f} ms" for name, ms in ops)
+            say("profile", f"{path}: wall {pwall:.3f} s, device time "
+                           f"{dev_ms:.3f} ms (busy "
+                           f"{100 * dev_ms / 1e3 / pwall:.4f}%), peak device "
+                           f"memory {peak} bytes; largest: {top}")
+
     if "jax" in sys.modules:
         fail("imports", "jax was imported")
+    say("done", f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": SOURCE,
-         "replaces": REPLACES[k], "launches": runs[k],
+         "replaces": REPLACES[k],
+         "launches": sum(p[k] for p in paths.values()),
          "max_abs_err": check.err[k], "ms": check.ms[k],
          "plain_ms": check.plain_ms[k]} for k in REPLACES]}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,4 +1,5 @@
-// Hand-written Hopper (sm_90a) kernels for the chr-mode coverage sweep.
+// Hand-written Hopper (sm_90a) kernels for the coverage sweep and the
+// CIGAR-extraction feed.
 //
 // Plain C interface, built with nvcc and loaded with ctypes by
 // pandepth_tpu_torch/device/kernels.py. Every entry point launches on
@@ -283,6 +284,174 @@ __global__ void eval_pair_kernel(const P* __restrict__ pos,
     dsum[i] = (int64_t)(sum_hi - sum_lo);
 }
 
+// ---------------------------------------------------------------------
+// K5 eval_boundaries — replaces pandepth_tpu/device/sweep.py:
+// eval_boundaries. The one-sided half of K3: (Q_cov(x), Q_sum(x)) per
+// boundary, through the same q_eval search and integral. Bound by the
+// same dependent-load chain as K3; one thread per boundary.
+
+template <typename P>
+__global__ void eval_boundaries_kernel(const P* __restrict__ pos,
+                                       const int32_t* __restrict__ depth,
+                                       const int64_t* __restrict__ c_cov,
+                                       const int64_t* __restrict__ c_sum,
+                                       int64_t e, int32_t min_dep,
+                                       const P* __restrict__ x, int64_t b,
+                                       int64_t* __restrict__ q_cov,
+                                       int64_t* __restrict__ q_sum) {
+    const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+    if (i >= b) return;
+    u64 cov, sum;
+    q_eval<P>(pos, depth, c_cov, c_sum, e, min_dep, x[i], &cov, &sum);
+    q_cov[i] = (int64_t)cov;
+    q_sum[i] = (int64_t)sum;
+}
+
+// ---------------------------------------------------------------------
+// K6 extract_events — replaces pandepth_tpu/device/events.py:
+// extract_events (and, with the engine's tier sentinel and position
+// dtype, the clamp-and-cast of pandepth_tpu/device/engine.py:add_batch).
+// Bound on the H100: memory. Per CIGAR op it reads op_code/op_len/
+// op_read (12 B) twice, the op's read row (tid/pos/flag/mapq, 16 B, but
+// neighbouring ops share a read, so mostly cache hits), writes and
+// re-reads its int64 ref offset, and writes two positions and two
+// deltas (16-24 B): ~60 B per op, ~63 MB for a 2^20-op batch.
+// JAX rebases a global exclusive cumsum of ref-consumed lengths per read
+// with segment_min over op_read. A thread per read walking its op range
+// would serialise on the one read that owns a JAX-padded tail (half the
+// ops) or a long CIGAR, so the design is per op:
+//   1. per-block totals of the ref-consumed lengths (ref_len_totals_kernel)
+//   2. one-block exclusive scan of them            (exclusive_scan_one_block)
+//   3. each op's global exclusive prefix; the first op of each read
+//      stores its prefix as the read's base       (ref_offset_kernel)
+//   4. one thread per op: offset = prefix - its read's base, the read's
+//      filters, the clip, two events             (emit_events_kernel)
+// op_read must be non-decreasing and op_len non-negative (a BAM length is
+// 28-bit unsigned), as JAX's sorted segment_min also assumes: the
+// minimum of a read's non-decreasing prefixes is its first op's.
+
+constexpr int32_t REF_CONSUME_MASK = 0x18D;  // M D N = X
+constexpr int32_t DEPTH_MASK = 0x181;        // M = X
+constexpr int64_t DEAD_POS = 1LL << 62;      // JAX's dead-slot SENTINEL
+
+// bit `code` of `mask`; 0 for a code outside [0, 32), as XLA's shift
+__device__ __forceinline__ int32_t op_bit(int32_t mask, int32_t code) {
+    return (uint32_t)code < 32u ? (mask >> code) & 1 : 0;
+}
+
+// the op's ref-consumed length, int32 product sign-extended as in JAX
+__device__ __forceinline__ u64 ref_len(int32_t code, int32_t len) {
+    return (u64)(int64_t)(len * op_bit(REF_CONSUME_MASK, code));
+}
+
+// jnp.clip: min(max(x, lo), hi)
+__device__ __forceinline__ int64_t clip64(int64_t x, int64_t lo,
+                                          int64_t hi) {
+    x = x < lo ? lo : x;
+    return x > hi ? hi : x;
+}
+
+__global__ void ref_len_totals_kernel(const int32_t* __restrict__ op_code,
+                                      const int32_t* __restrict__ op_len,
+                                      int64_t m, u64* __restrict__ tot) {
+    __shared__ u64 warp_tot[32];
+    const int64_t base = (int64_t)blockIdx.x * TILE;
+    u64 s = 0;
+#pragma unroll
+    for (int k = 0; k < ITEMS; ++k) {
+        const int64_t i = base + (int64_t)k * THREADS + threadIdx.x;
+        if (i < m) s += ref_len(op_code[i], op_len[i]);
+    }
+    u64 block_total;
+    block_exclusive_scan<u64>(s, warp_tot, &block_total);
+    if (threadIdx.x == 0) tot[blockIdx.x] = block_total;
+}
+
+__global__ void ref_offset_kernel(const int32_t* __restrict__ op_code,
+                                  const int32_t* __restrict__ op_len,
+                                  const int32_t* __restrict__ op_read,
+                                  int64_t m, int64_t n,
+                                  const u64* __restrict__ carry,
+                                  u64* __restrict__ excl,
+                                  u64* __restrict__ read_base) {
+    __shared__ u64 warp_tot[32];
+    const int64_t base = (int64_t)blockIdx.x * TILE
+                         + (int64_t)threadIdx.x * ITEMS;
+    u64 c[ITEMS];
+    u64 thread_sum = 0;
+#pragma unroll
+    for (int k = 0; k < ITEMS; ++k) {
+        const int64_t i = base + k;
+        c[k] = i < m ? ref_len(op_code[i], op_len[i]) : 0;
+        thread_sum += c[k];
+    }
+    u64 block_total;
+    u64 run = block_exclusive_scan<u64>(thread_sum, warp_tot, &block_total)
+              + carry[blockIdx.x];
+#pragma unroll
+    for (int k = 0; k < ITEMS; ++k) {
+        const int64_t i = base + k;
+        if (i < m) {
+            excl[i] = run;
+            const int32_t r = op_read[i];
+            if ((i == 0 || op_read[i - 1] != r) && (uint32_t)r < n)
+                read_base[r] = run;
+        }
+        run += c[k];
+    }
+}
+
+template <typename Out>
+__global__ void emit_events_kernel(const int32_t* __restrict__ tid,
+                                   const int32_t* __restrict__ pos,
+                                   const int32_t* __restrict__ flag,
+                                   const int32_t* __restrict__ mapq,
+                                   const int32_t* __restrict__ op_code,
+                                   const int32_t* __restrict__ op_len,
+                                   const int32_t* __restrict__ op_read,
+                                   int64_t m, int64_t n,
+                                   const int64_t* __restrict__ offsets,
+                                   const int64_t* __restrict__ limits,
+                                   int64_t n_targets, int32_t flags_mask,
+                                   int32_t min_mapq,
+                                   const u64* __restrict__ excl,
+                                   const u64* __restrict__ read_base,
+                                   int64_t sentinel,
+                                   Out* __restrict__ ev_pos,
+                                   int32_t* __restrict__ ev_delta) {
+    const int64_t stride = (int64_t)gridDim.x * blockDim.x;
+    for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < m;
+         i += stride) {
+        // an op_read outside [0, n) reads a clamped row (memory safety;
+        // the decoders never produce one)
+        const int32_t r_raw = op_read[i];
+        const int64_t r = r_raw < 0 ? 0 : (r_raw < n ? r_raw : n - 1);
+        const int32_t t = tid[r];
+        bool keep = (flag[r] & flags_mask) == 0 && t >= 0;
+        if (min_mapq >= 1) keep = keep && mapq[r] >= min_mapq;
+        // JAX gathers at max(tid, 0) and clamps past the last target
+        const int64_t ts = t < 0 ? 0 : (t < n_targets ? t : n_targets - 1);
+        const int64_t lo = offsets[ts];
+        const int64_t hi = limits[ts];
+        const int32_t len = op_len[i];
+        // int64 sums wrap as in JAX
+        const u64 off = excl[i] - read_base[r];
+        int64_t start = (int64_t)((u64)lo + (u64)(int64_t)pos[r] + off);
+        int64_t end = (int64_t)((u64)start + (u64)(int64_t)len);
+        start = clip64(start, lo, hi);
+        end = clip64(end, lo, hi);
+        const bool live = op_bit(DEPTH_MASK, op_code[i]) && keep && len > 0
+                          && end > start;
+        // JAX's where(live, x, SENTINEL), then add_batch's min(., sentinel)
+        const int64_t s = live ? start : DEAD_POS;
+        const int64_t e = live ? end : DEAD_POS;
+        ev_pos[i] = (Out)(s < sentinel ? s : sentinel);
+        ev_pos[m + i] = (Out)(e < sentinel ? e : sentinel);
+        ev_delta[i] = live ? 1 : 0;
+        ev_delta[m + i] = live ? -1 : 0;
+    }
+}
+
 inline unsigned int point_blocks(int64_t n) {
     const int64_t b = (n + POINT_THREADS - 1) / POINT_THREADS;
     return (unsigned int)(b < (1 << 20) ? b : (1 << 20));
@@ -386,6 +555,71 @@ int pdt_eval_pair(int device, int pos64, const void* pos,
         eval_pair_kernel<int32_t><<<blocks, POINT_THREADS, 0, st>>>(
             (const int32_t*)pos, depth, c_cov, c_sum, e, min_dep,
             (const int32_t*)lo, (const int32_t*)hi, b, cover, dsum);
+    }
+    return (int)cudaGetLastError();
+}
+
+int pdt_eval_boundaries(int device, int pos64, const void* pos,
+                        const int32_t* depth, const int64_t* c_cov,
+                        const int64_t* c_sum, int64_t e, int32_t min_dep,
+                        const void* x, int64_t b, int64_t* q_cov,
+                        int64_t* q_sum, void* stream) {
+    cudaError_t err = cudaSetDevice(device);
+    if (err != cudaSuccess) return (int)err;
+    if (b <= 0 || e <= 0) return (int)cudaGetLastError();
+    cudaStream_t st = (cudaStream_t)stream;
+    const unsigned int blocks =
+        (unsigned int)((b + POINT_THREADS - 1) / POINT_THREADS);
+    if (pos64) {
+        eval_boundaries_kernel<int64_t><<<blocks, POINT_THREADS, 0, st>>>(
+            (const int64_t*)pos, depth, c_cov, c_sum, e, min_dep,
+            (const int64_t*)x, b, q_cov, q_sum);
+    } else {
+        eval_boundaries_kernel<int32_t><<<blocks, POINT_THREADS, 0, st>>>(
+            (const int32_t*)pos, depth, c_cov, c_sum, e, min_dep,
+            (const int32_t*)x, b, q_cov, q_sum);
+    }
+    return (int)cudaGetLastError();
+}
+
+// scratch: m + n + ceil(m / pdt_sweep_scan_tile()) int64 words (each op's
+// prefix, each read's base, the block totals). ev_pos is int64 when pos64
+// is set, else int32. Dead slots hold 1 << 62, and every position is then
+// clamped to at most `sentinel` (1 << 62 gives JAX's extract_events).
+int pdt_extract_events(int device, const int32_t* tid, const int32_t* pos,
+                       const int32_t* flag, const int32_t* mapq, int64_t n,
+                       const int32_t* op_code, const int32_t* op_len,
+                       const int32_t* op_read, int64_t m,
+                       const int64_t* offsets, const int64_t* limits,
+                       int64_t n_targets, int32_t flags_mask,
+                       int32_t min_mapq, int pos64, int64_t sentinel,
+                       void* ev_pos, int32_t* ev_delta, int64_t* scratch,
+                       void* stream) {
+    cudaError_t err = cudaSetDevice(device);
+    if (err != cudaSuccess) return (int)err;
+    if (m <= 0) return (int)cudaGetLastError();
+    if (n <= 0 || n_targets <= 0) return (int)cudaErrorInvalidValue;
+    cudaStream_t st = (cudaStream_t)stream;
+    const int64_t nblk = (m + TILE - 1) / TILE;
+    u64* excl = reinterpret_cast<u64*>(scratch);
+    u64* read_base = excl + m;
+    u64* tot = read_base + n;
+    ref_len_totals_kernel<<<(unsigned int)nblk, THREADS, 0, st>>>(
+        op_code, op_len, m, tot);
+    exclusive_scan_one_block<u64><<<1, TOTALS_THREADS, 0, st>>>(tot, nblk);
+    ref_offset_kernel<<<(unsigned int)nblk, THREADS, 0, st>>>(
+        op_code, op_len, op_read, m, n, tot, excl, read_base);
+    const unsigned int blocks = point_blocks(m);
+    if (pos64) {
+        emit_events_kernel<int64_t><<<blocks, POINT_THREADS, 0, st>>>(
+            tid, pos, flag, mapq, op_code, op_len, op_read, m, n, offsets,
+            limits, n_targets, flags_mask, min_mapq, excl, read_base,
+            sentinel, (int64_t*)ev_pos, ev_delta);
+    } else {
+        emit_events_kernel<int32_t><<<blocks, POINT_THREADS, 0, st>>>(
+            tid, pos, flag, mapq, op_code, op_len, op_read, m, n, offsets,
+            limits, n_targets, flags_mask, min_mapq, excl, read_base,
+            sentinel, (int32_t*)ev_pos, ev_delta);
     }
     return (int)cudaGetLastError();
 }

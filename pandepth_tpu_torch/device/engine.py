@@ -1,13 +1,16 @@
-"""CoverageEngine on PyTorch: raw start/end event pairs in, per-segment
-statistics out. The port of the raw-event half of
-``pandepth_tpu/device/engine.py``.
+"""CoverageEngine on PyTorch: raw start/end event pairs or columnar read
+batches in, per-segment statistics out. The port of the raw-event half
+of ``pandepth_tpu/device/engine.py``.
 
-Host-staged pairs go to the device in one copy per flush, the
-``pack_events`` kernel turns them into +-1 events there, and
-``segment_stats`` runs sort -> ``sweep_scan`` -> ``eval_pair`` on one
-stream and brings (cover, dsum) back in one copy. The engine presents
-the surface that the shared run helpers of ``pandepth_tpu.run`` read
-(``pos_dtype`` is the numpy dtype the native feed views its buffers as).
+Host-staged pairs go to the device in one copy per flush, and the
+``pack_events`` kernel turns them into +-1 events there. A read batch
+(``add_batch``, the Python decoders' CIGAR feed) goes up as its seven
+int32 columns in one copy, and the ``extract_events`` kernel turns it
+into events in the engine's position tier. ``segment_stats`` runs sort
+-> ``sweep_scan`` -> ``eval_pair`` on one stream and brings (cover,
+dsum) back in one copy. The engine presents the surface that the shared
+run helpers of ``pandepth_tpu.run`` read (``pos_dtype`` is the numpy
+dtype the native feed views its buffers as).
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ from pandepth_tpu.device.hosteval import SegmentStats, pos_dtype_for
 from pandepth_tpu.device.layout import GenomeLayout
 from pandepth_tpu_torch.device import sweep
 from pandepth_tpu_torch.device.convert import device_pos_dtype
+from pandepth_tpu_torch.device.events import extract_events
 
 
 class CoverageEngine:
@@ -37,9 +41,11 @@ class CoverageEngine:
     def __init__(self, layout: GenomeLayout, flags_mask: int = 1796,
                  min_mapq: int = -1, min_dep: int = 1,
                  wrap18: bool = False, *, device):
-        # flags_mask and min_mapq are applied by the native feed; they stay
-        # in the signature for parity with pandepth_tpu's engines
+        # the native feeds filter by flags and MAPQ themselves; add_batch
+        # filters here
         self.layout = layout
+        self.flags_mask = int(flags_mask)
+        self.min_mapq = int(min_mapq)
         self.min_dep = max(int(min_dep), 1)
         self.wrap18 = bool(wrap18)
         self.device = torch.device(device)
@@ -55,6 +61,7 @@ class CoverageEngine:
         self._flush_events = int(os.environ.get(
             "PANDEPTH_FLUSH_EVENTS", 48 << 20))
         self._chunks: List[Tuple[torch.Tensor, torch.Tensor]] = []
+        self._layout_dev: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
         self._state: Optional[Tuple[torch.Tensor, ...]] = None
         self.n_reads_seen = 0
         self.keep_state = True
@@ -110,6 +117,32 @@ class CoverageEngine:
         raw = self.upload_staged()
         if raw is not None:
             self._chunks.append(sweep.pack_events(*raw, self.pos_sentinel))
+
+    def add_batch(self, batch) -> None:
+        """Extract the events of a columnar ``ReadBatch`` on the device.
+        Nothing is padded: the kernel takes any N and M."""
+        n, m = batch.n_reads, batch.n_total_ops
+        if n == 0:
+            return
+        self.n_reads_seen += n
+        if m == 0:
+            return
+        cols = torch.from_numpy(np.concatenate([
+            batch.tid, batch.pos, batch.flag, batch.mapq, batch.op_code,
+            batch.op_len, batch.op_read]).astype(np.int32, copy=False))
+        c = cols.to(self.device)
+        if self._layout_dev is None:
+            lay = torch.from_numpy(np.stack([self.layout.offsets,
+                                             self.layout.limits]))
+            lay = lay.to(self.device)
+            self._layout_dev = (lay[0], lay[1])
+        self._chunks.append(extract_events(
+            c[:n], c[n:2 * n], c[2 * n:3 * n], c[3 * n:4 * n],
+            c[4 * n:4 * n + m], c[4 * n + m:4 * n + 2 * m],
+            c[4 * n + 2 * m:], *self._layout_dev,
+            flags_mask=self.flags_mask, min_mapq=self.min_mapq,
+            sentinel=self.pos_sentinel, pos_dtype=self._dev_dtype))
+        self._state = None
 
     def add_intervals(self, tid: np.ndarray, start0: np.ndarray,
                       end0: np.ndarray) -> None:

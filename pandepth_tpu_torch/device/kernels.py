@@ -36,7 +36,8 @@ TIER_I32, TIER_U32, TIER_I64 = 0, 1, 2
 
 #: launches per kernel since the last :func:`reset_launches`
 launches: Dict[str, int] = {"pack_events": 0, "sweep_scan": 0,
-                            "eval_pair": 0}
+                            "eval_pair": 0, "extract_events": 0,
+                            "eval_boundaries": 0}
 #: ptxas's register / shared-memory report from the last build
 build_log: str = ""
 
@@ -105,6 +106,15 @@ def library() -> ctypes.CDLL:
         lib.pdt_eval_pair.argtypes = [ctypes.c_int, ctypes.c_int, vp, vp,
                                       vp, vp, i64, i32, vp, vp, i64, vp, vp,
                                       vp]
+        lib.pdt_eval_boundaries.restype = ctypes.c_int
+        lib.pdt_eval_boundaries.argtypes = [ctypes.c_int, ctypes.c_int, vp,
+                                            vp, vp, vp, i64, i32, vp, i64,
+                                            vp, vp, vp]
+        lib.pdt_extract_events.restype = ctypes.c_int
+        lib.pdt_extract_events.argtypes = [ctypes.c_int, vp, vp, vp, vp, i64,
+                                           vp, vp, vp, i64, vp, vp, i64, i32,
+                                           i32, ctypes.c_int, i64, vp, vp,
+                                           vp, vp]
         _lib = lib
         return lib
 
@@ -128,6 +138,11 @@ def _require(name: str, t: torch.Tensor, dtype: torch.dtype) -> None:
     if t.dtype != dtype or t.dim() != 1 or not t.is_contiguous():
         raise ValueError(f"{name}: needs a contiguous 1-D {dtype} tensor, "
                          f"got {t.dtype} of shape {tuple(t.shape)}")
+
+
+def _one_device(name: str, *ts: torch.Tensor) -> None:
+    if any(t.device != ts[0].device for t in ts):
+        raise ValueError(f"{name}: tensors on different devices")
 
 
 def pack_events(starts: torch.Tensor, ends: torch.Tensor,
@@ -216,3 +231,75 @@ def eval_pair(pos_s: torch.Tensor, depth: torch.Tensor, c_cov: torch.Tensor,
             _p(dsum), _stream(pos_s)))
         launches["eval_pair"] += 1
     return cover, dsum
+
+
+def eval_boundaries(pos_s: torch.Tensor, depth: torch.Tensor,
+                    c_cov: torch.Tensor, c_sum: torch.Tensor, min_dep: int,
+                    x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K5: (Q_cov(x), Q_sum(x)) int64 per boundary; ``x`` in the dtype of
+    ``pos_s``."""
+    pos64 = _pos64("eval_boundaries", pos_s)
+    for t in (pos_s, x):
+        _require("eval_boundaries", t, pos_s.dtype)
+    _require("eval_boundaries", depth, torch.int32)
+    _require("eval_boundaries", c_cov, torch.int64)
+    _require("eval_boundaries", c_sum, torch.int64)
+    _one_device("eval_boundaries", pos_s, depth, c_cov, c_sum, x)
+    e = pos_s.shape[0]
+    if not (depth.shape[0] == c_cov.shape[0] == c_sum.shape[0] == e) \
+            or e == 0:
+        raise ValueError("eval_boundaries: inconsistent sweep state")
+    b = x.shape[0]
+    q_cov = torch.empty(b, dtype=torch.int64, device=x.device)
+    q_sum = torch.empty(b, dtype=torch.int64, device=x.device)
+    if b:
+        lib = library()
+        _check("eval_boundaries", lib.pdt_eval_boundaries(
+            pos_s.get_device(), pos64, _p(pos_s), _p(depth), _p(c_cov),
+            _p(c_sum), e, int(min_dep), _p(x), b, _p(q_cov), _p(q_sum),
+            _stream(pos_s)))
+        launches["eval_boundaries"] += 1
+    return q_cov, q_sum
+
+
+def extract_events(tid: torch.Tensor, pos: torch.Tensor, flag: torch.Tensor,
+                   mapq: torch.Tensor, op_code: torch.Tensor,
+                   op_len: torch.Tensor, op_read: torch.Tensor,
+                   offsets: torch.Tensor, limits: torch.Tensor,
+                   flags_mask: int, min_mapq: int, sentinel: int,
+                   pos_dtype: torch.dtype
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K6: a columnar read batch -> (2M,) ``pos_dtype`` positions (starts
+    at [0, M), ends at [M, 2M); dead slots at 1 << 62; all clamped to at
+    most ``sentinel``) and (2M,) int32 deltas. ``op_read`` must be
+    non-decreasing."""
+    cols = (tid, pos, flag, mapq, op_code, op_len, op_read)
+    for t in cols:
+        _require("extract_events", t, torch.int32)
+    _require("extract_events", offsets, torch.int64)
+    _require("extract_events", limits, torch.int64)
+    _one_device("extract_events", *cols, offsets, limits)
+    if pos_dtype not in (torch.int32, torch.int64) \
+            or not 0 < sentinel <= torch.iinfo(pos_dtype).max:
+        raise ValueError(f"extract_events: sentinel {sentinel} does not "
+                         f"fit {pos_dtype}")
+    n, m, nt = tid.shape[0], op_code.shape[0], offsets.shape[0]
+    if any(t.shape[0] != n for t in cols[1:4]) \
+            or any(t.shape[0] != m for t in cols[5:]) \
+            or limits.shape[0] != nt or (m and (n == 0 or nt == 0)):
+        raise ValueError("extract_events: inconsistent batch shapes")
+    dev = tid.device
+    ev_pos = torch.empty(2 * m, dtype=pos_dtype, device=dev)
+    ev_delta = torch.empty(2 * m, dtype=torch.int32, device=dev)
+    if m:
+        lib = library()
+        nblk = -(-m // lib.pdt_sweep_scan_tile())
+        scratch = torch.empty(m + n + nblk, dtype=torch.int64, device=dev)
+        _check("extract_events", lib.pdt_extract_events(
+            tid.get_device(), _p(tid), _p(pos), _p(flag), _p(mapq), n,
+            _p(op_code), _p(op_len), _p(op_read), m, _p(offsets),
+            _p(limits), nt, int(flags_mask), int(min_mapq),
+            int(pos_dtype == torch.int64), int(sentinel), _p(ev_pos),
+            _p(ev_delta), _p(scratch), _stream(tid)))
+        launches["extract_events"] += 1
+    return ev_pos, ev_delta

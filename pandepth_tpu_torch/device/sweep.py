@@ -117,14 +117,13 @@ def sort_events(ev_pos: torch.Tensor, ev_delta: torch.Tensor,
 
 
 # ---------------------------------------------------------------------
-# K3: pandepth_tpu/device/sweep.py:eval_pair
+# K3: pandepth_tpu/device/sweep.py:eval_pair and
+# K5: pandepth_tpu/device/sweep.py:eval_boundaries
 
-def eval_pair_reference(pos_s: torch.Tensor, depth: torch.Tensor,
-                        c_cov: torch.Tensor, c_sum: torch.Tensor,
-                        min_dep: int, lo: torch.Tensor, hi: torch.Tensor,
-                        method: Optional[str] = None):
-    b = lo.shape[0]
-    x = torch.cat([lo, hi]).to(pos_s.dtype)
+def eval_boundaries_reference(pos_s: torch.Tensor, depth: torch.Tensor,
+                              c_cov: torch.Tensor, c_sum: torch.Tensor,
+                              min_dep: int, x: torch.Tensor):
+    x = x.to(pos_s.dtype)
     r = torch.searchsorted(pos_s, x, side="left")
     e = pos_s.shape[0]
     i_full = (r - 2).clamp(0, e - 1)
@@ -135,16 +134,35 @@ def eval_pair_reference(pos_s: torch.Tensor, depth: torch.Tensor,
     ind = (dep >= min_dep).to(torch.int64)
     diff = (x - pos_s[i_part]).to(torch.int64)
     part = torch.where(r >= 1, diff * ind, 0)
-    q_cov = full_cov + part
-    q_sum = full_sum + part * dep
+    return full_cov + part, full_sum + part * dep
+
+
+def eval_boundaries(pos_s: torch.Tensor, depth: torch.Tensor,
+                    c_cov: torch.Tensor, c_sum: torch.Tensor, min_dep: int,
+                    x: torch.Tensor):
+    """(Q_cov(x), Q_sum(x)) int64: the integrals of the covered indicator
+    and of covered depth over [0, x), per boundary ``x`` (in the position
+    dtype)."""
+    if not _use_kernel(pos_s):
+        return eval_boundaries_reference(pos_s, depth, c_cov, c_sum,
+                                         min_dep, x)
+    return kernels.eval_boundaries(pos_s, depth, c_cov, c_sum, min_dep, x)
+
+
+def eval_pair_reference(pos_s: torch.Tensor, depth: torch.Tensor,
+                        c_cov: torch.Tensor, c_sum: torch.Tensor,
+                        min_dep: int, lo: torch.Tensor, hi: torch.Tensor,
+                        method: Optional[str] = None):
+    b = lo.shape[0]
+    q_cov, q_sum = eval_boundaries_reference(pos_s, depth, c_cov, c_sum,
+                                             min_dep, torch.cat([lo, hi]))
     return q_cov[b:] - q_cov[:b], q_sum[b:] - q_sum[:b]
 
 
 def eval_pair(pos_s: torch.Tensor, depth: torch.Tensor, c_cov: torch.Tensor,
               c_sum: torch.Tensor, min_dep: int, lo: torch.Tensor,
               hi: torch.Tensor, method: Optional[str] = None):
-    """Per-segment (cover, dsum) int64 = Q(hi) - Q(lo), where Q(x)
-    integrates the covered indicator and covered depth over [0, x).
+    """Per-segment (cover, dsum) int64 = Q(hi) - Q(lo).
     ``lo``/``hi`` are in the position dtype."""
     if not _use_kernel(pos_s):
         return eval_pair_reference(pos_s, depth, c_cov, c_sum, min_dep,

@@ -1,7 +1,9 @@
-"""The port's chr-mode slice end to end on the CPU: pandepth_tpu_torch.cli
-against the committed golden table and pandepth_tpu.cli on the same
-inputs (byte-equal decompressed tables), its jax-free import, and its
-clean refusals."""
+"""The port's single-file run end to end on the CPU: pandepth_tpu_torch.cli
+against the committed golden tables and pandepth_tpu.cli on the same
+inputs (byte-equal decompressed tables) for BAM, SAM, gzipped SAM and
+CRAM, through the native feeds and the Python decoders' CIGAR feed, in
+chr, -b, -g and -w >= 150 modes; its jax-free import, and its clean
+refusals."""
 
 import os
 import subprocess
@@ -10,36 +12,76 @@ import sys
 import pytest
 import torch
 
-from tests.fixtures import gunzip_bytes, make_bam, make_fasta
+from tests.fixtures import (CONTIGS, gunzip_bytes, make_bam, make_bed,
+                            make_fasta, make_gff, random_reads)
+from tests.test_sam import make_sam
 
+from pandepth_tpu.io.cram_writer import write_cram
 from pandepth_tpu.cli import main as jax_main
 from pandepth_tpu_torch.cli import main as port_main
+from pandepth_tpu_torch.device.engine import CoverageEngine
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-GOLDEN = os.path.join(ROOT, "tests", "golden", "chr.chr.stat.gz.txt")
+GOLDEN_DIR = os.path.join(ROOT, "tests", "golden")
+GOLDEN = os.path.join(GOLDEN_DIR, "chr.chr.stat.gz.txt")
+
+# tests/test_golden.py's configurations (-w 100 is not in this slice)
+# and the table each writes
+MODES = {"chr": ([], "chr"),
+         "bed": (["-b", "{bed}"], "bed"),
+         "gene": (["-g", "{gff}", "-f", "CDS"], "gene"),
+         "gene_gc": (["-g", "{gff_safe}", "-c", "-r", "{fa}"], "gene"),
+         "win500": (["-w", "500"], "win")}
 
 
 @pytest.fixture(scope="module")
 def bams(tmp_path_factory):
     d = tmp_path_factory.mktemp("torch_cli")
     paths = {"bam": str(d / "t.bam"), "noidx": str(d / "noidx.bam"),
-             "fa": str(d / "ref.fa"), "dir": str(d)}
+             "fa": str(d / "ref.fa"), "dir": str(d),
+             "bed": str(d / "t.bed"), "gff": str(d / "t.gff"),
+             "gff_safe": str(d / "safe.gff"), "sam": str(d / "t.sam"),
+             "sam_gz": str(d / "t.sam.gz"), "cram": str(d / "t.cram")}
     make_bam(paths["bam"], n=800, seed=11)
     make_bam(paths["noidx"], n=800, seed=11, make_index=False)
     make_fasta(paths["fa"])
+    make_bed(paths["bed"])
+    make_gff(paths["gff"])
+    make_gff(paths["gff_safe"], overhang=False)
+    make_sam(paths["sam"])
+    make_sam(paths["sam_gz"], gz=True, seed=18)
+    # CRAM canonicalizes =/X to M (the same depth)
+    recs = [(t, p, f, q, c.replace("=", "M").replace("X", "M"))
+            for t, p, f, q, c in random_reads(n=400, seed=66)]
+    write_cram(paths["cram"], [c[0] for c in CONTIGS],
+               [c[1] for c in CONTIGS], recs)
     return paths
 
 
-def _port_table(tmp_path, args, name="port"):
+def _port_table(tmp_path, args, name="port", table="chr"):
     out = str(tmp_path / name)
     assert port_main(["pandepth", *args, "-o", out], device="cpu") == 0
-    return gunzip_bytes(out + ".chr.stat.gz")
+    return gunzip_bytes(f"{out}.{table}.stat.gz")
 
 
-def _jax_table(tmp_path, args):
+def _jax_table(tmp_path, args, table="chr"):
     out = str(tmp_path / "jax")
     assert jax_main(["pandepth", *args, "-o", out]) == 0
-    return gunzip_bytes(out + ".chr.stat.gz")
+    return gunzip_bytes(f"{out}.{table}.stat.gz")
+
+
+@pytest.fixture
+def batch_calls(monkeypatch):
+    """Counts the read batches the CIGAR feed hands to the engine."""
+    calls = []
+    real = CoverageEngine.add_batch
+
+    def counted(self, batch):
+        calls.append(batch.n_reads)
+        return real(self, batch)
+
+    monkeypatch.setattr(CoverageEngine, "add_batch", counted)
+    return calls
 
 
 def test_golden_chr_table(tmp_path, bams):
@@ -58,6 +100,70 @@ def test_golden_chr_table(tmp_path, bams):
 def test_chr_table_matches_jax_cli(tmp_path, bams, args):
     args = [a.format(**bams) for a in args]
     assert _port_table(tmp_path, args) == _jax_table(tmp_path, args)
+
+
+@pytest.mark.parametrize("native", [True, False], ids=["native",
+                                                         "no_native"])
+@pytest.mark.parametrize("mode", ["chr", "bed", "gene", "gene_gc"])
+def test_golden_tables(tmp_path, bams, monkeypatch, batch_calls, mode,
+                       native):
+    """tests/test_golden.py's BAM configurations, through the native
+    stream or (PANDEPTH_NO_NATIVE=1) the Python decoder and the CIGAR
+    feed, byte-equal to the reference binary's golden tables."""
+    if not native:
+        monkeypatch.setenv("PANDEPTH_NO_NATIVE", "1")
+    args, table = MODES[mode]
+    got = _port_table(tmp_path, ["-i", bams["bam"],
+                                 *(a.format(**bams) for a in args)],
+                      table=table)
+    with open(os.path.join(GOLDEN_DIR, f"{mode}.{table}.stat.gz.txt"),
+              "rb") as fh:
+        assert got == fh.read()
+    assert bool(batch_calls) != native
+
+
+@pytest.mark.parametrize("inp,mode,batches", [
+    ("sam", "chr", False),         # libpancov_io's SAM text parse
+    ("sam", "bed", True),          # coordinate-sorted: the region cursor
+    ("sam_gz", "chr", False),
+    ("sam_gz", "gene", True),
+    ("sam_no_native", "chr", True),
+    ("sam_no_native", "gene_gc", True),
+    ("cram", "chr", False),        # vectorised slices -> intervals
+    ("cram", "bed", True),
+    ("bam_no_native", "win500", True),
+    ("bam", "win500", False),
+])
+def test_input_tables_match_jax_cli(tmp_path, bams, monkeypatch,
+                                    batch_calls, inp, mode, batches):
+    """Each input kind and feed against pandepth_tpu.cli on the same
+    input; ``batches`` says whether the run rode the CIGAR feed."""
+    if inp.endswith("_no_native"):
+        monkeypatch.setenv("PANDEPTH_NO_NATIVE", "1")
+        inp = inp[: -len("_no_native")]
+    args, table = MODES[mode]
+    args = ["-i", bams[inp], *(a.format(**bams) for a in args)]
+    got = _port_table(tmp_path, args, table=table)
+    assert bool(batch_calls) == batches
+    assert got == _jax_table(tmp_path, args, table=table)
+
+
+def test_cigar_feed_imports_no_jax(tmp_path, bams):
+    """A fresh process runs the Python decoder's CIGAR feed on the CPU
+    without jax, into the golden bed table."""
+    code = ("import sys\n"
+            "from pandepth_tpu_torch.cli import main\n"
+            f"rc = main(['pandepth', '-i', {bams['bam']!r}, '-b', "
+            f"{bams['bed']!r}, '-o', {str(tmp_path / 'sub')!r}], "
+            "device='cpu')\n"
+            "assert 'jax' not in sys.modules, 'jax was imported'\n"
+            "sys.exit(rc)\n")
+    env = dict(os.environ, PYTHONPATH=ROOT, PANDEPTH_NO_NATIVE="1")
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr
+    with open(os.path.join(GOLDEN_DIR, "bed.bed.stat.gz.txt"), "rb") as fh:
+        assert gunzip_bytes(str(tmp_path / "sub.bed.stat.gz")) == fh.read()
 
 
 def test_cli_imports_no_jax(tmp_path, bams):
@@ -98,6 +204,28 @@ def test_module_entry_point_without_gpu(tmp_path, bams):
     assert "no CUDA device" in r.stderr
 
 
+@pytest.mark.parametrize("broken", ["library", "loader"])
+def test_native_failure_exits_nonzero(tmp_path, bams, capsys, monkeypatch,
+                                      batch_calls, broken):
+    """Without PANDEPTH_NO_NATIVE=1, a libpancov_io that does not load,
+    or a native loader that cannot read the BAM, fails the run: it never
+    moves onto the Python decoder."""
+    import pandepth_tpu.io.native as native
+    import pandepth_tpu_torch.run as port_run
+
+    if broken == "library":
+        monkeypatch.setattr(native, "load_library", lambda: None)
+    else:
+        monkeypatch.setattr(port_run, "_try_native_load",
+                            lambda *a, **k: None)
+    out = str(tmp_path / "o")
+    rc = port_main(["pandepth", "-i", bams["bam"], "-o", out], device="cpu")
+    assert rc != 0
+    assert "libpancov_io" in capsys.readouterr().err
+    assert not batch_calls
+    assert not os.path.exists(out + ".chr.stat.gz")
+
+
 def _unported_input(kind, d, bams):
     if kind == "list":
         p = os.path.join(d, "in.list")
@@ -109,45 +237,17 @@ def _unported_input(kind, d, bams):
         with open(p, "w") as fh:
             fh.write("q\t100\t0\t50\t+\tchr1\t5000\t10\t60\t50\t50\t60\n")
         return ["-i", p]
-    if kind == "sam":
-        p = os.path.join(d, "in.sam")
-        with open(p, "w") as fh:
-            fh.write("@SQ\tSN:chr1\tLN:5000\n"
-                     "r1\t0\tchr1\t10\t60\t50M\t*\t0\t0\t*\t*\n")
-        return ["-i", p]
-    if kind == "cram":
-        p = os.path.join(d, "in.cram")
-        with open(p, "wb") as fh:
-            fh.write(b"CRAM\x03\x00" + bytes(64))
-        return ["-i", p]
     return ["-i", bams["bam"]]
 
 
 @pytest.mark.parametrize("kind,extra", [
     ("bam", ["-a"]),
-    ("bam", ["-g", "{bam}"]),
-    ("bam", ["-b", "{bed}"]),
-    ("bam", ["-w", "500"]),
     ("bam", ["-w", "100"]),
     ("list", []),
     ("paf", []),
-    ("sam", []),
-    ("cram", []),
-    ("no_native", []),
-], ids=["site", "gff", "bed", "win", "win_small", "list", "paf", "sam",
-        "cram", "no_native"])
-def test_unported_inputs_exit_nonzero(tmp_path, bams, capsys, monkeypatch,
-                                      kind, extra):
+], ids=["site", "win_small", "list", "paf"])
+def test_unported_inputs_exit_nonzero(tmp_path, bams, capsys, kind, extra):
     d = str(tmp_path)
-    bed = os.path.join(d, "t.bed")
-    with open(bed, "w") as fh:
-        fh.write("chr1\t10\t200\n")
-    gff = os.path.join(d, "t.gff")
-    with open(gff, "w") as fh:
-        fh.write("chr1\tx\tCDS\t10\t200\t.\t+\t0\tParent=g1\n")
-    extra = [a.format(bam=gff, bed=bed) for a in extra]
-    if kind == "no_native":
-        monkeypatch.setenv("PANDEPTH_NO_NATIVE", "1")
     args = _unported_input(kind, d, bams)
     out = os.path.join(d, "o")
     rc = port_main(["pandepth", *args, *extra, "-o", out], device="cpu")

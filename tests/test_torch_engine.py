@@ -13,6 +13,7 @@ from pandepth_tpu.device.engine import CoverageEngine as JaxEngine
 from pandepth_tpu.device.hosteval import WRAP18_MASK
 from pandepth_tpu.device.layout import GenomeLayout
 from pandepth_tpu_torch.device.engine import CoverageEngine
+from pandepth_tpu_torch.synth import make_batch
 
 # contig lengths per tier: int32 below 2 Gb, uint32 to 4 Gb, int64 above
 LAYOUTS = {"int32": [5000, 3200, 700],
@@ -135,6 +136,24 @@ def test_wrap18_pileup():
     assert st.cover[0] == 10
     assert st.depth_sum[0] == 10 * (n & WRAP18_MASK)
     _assert_stats_equal(st, ref.segment_stats(*seg))
+
+
+@pytest.mark.parametrize("tier", sorted(LAYOUTS))
+def test_add_batch_matches_jax(tier):
+    """Read batches (the CIGAR feed) mixed with native-style pairs, the
+    batch filters applied by the engine (min_mapq=20, default -x)."""
+    lay, port, ref = _engines(tier, min_mapq=20)
+    batches = [make_batch(lay.lengths, n, seed=60 + n) for n in (500, 1)]
+    batches.append(make_batch(lay.lengths, 40, seed=62, max_ops=0))
+    for eng in (port, ref):
+        eng.add_batch(batches[0])
+    _feed(lay, (port, ref), seed=63, n=600)
+    for eng in (port, ref):
+        for b in batches[1:]:
+            eng.add_batch(b)
+    assert port.n_reads_seen == ref.n_reads_seen == 541
+    seg = _segments(lay, 300, seed=64)
+    _assert_stats_equal(port.segment_stats(*seg), ref.segment_stats(*seg))
 
 
 def test_empty_engine():

@@ -13,7 +13,10 @@ import jax.numpy as jnp
 
 from pandepth_tpu.device import sweep as jsweep
 from pandepth_tpu.device.engine import _pack_events as jax_pack_events
-from pandepth_tpu_torch.device import convert, kernels, sweep
+from pandepth_tpu.device.layout import GenomeLayout
+from pandepth_tpu.io.bam import ReadBatch
+from pandepth_tpu_torch.device import convert, events, kernels, sweep
+from pandepth_tpu_torch.device.engine import CoverageEngine
 
 # tier -> (numpy position dtype, span of the positions drawn)
 TIERS = {"int32": (np.int32, 2_000_000_000),
@@ -226,7 +229,9 @@ def test_device_pos_dtype_tiers():
         convert.tier_of(np.int16)
 
 
-@pytest.mark.parametrize("fn", ["pack_events", "sort_events", "eval_pair"])
+@pytest.mark.parametrize("fn", ["pack_events", "sort_events", "eval_pair",
+                                "extract_events", "eval_boundaries",
+                                "add_batch"])
 def test_cuda_branch_raises_instead_of_falling_back(monkeypatch, fn):
     """With the dispatch predicate saying "CUDA", a CPU tensor reaches the
     kernel wrapper, which refuses it: no plain fallback."""
@@ -234,11 +239,23 @@ def test_cuda_branch_raises_instead_of_falling_back(monkeypatch, fn):
     p = torch.tensor([5, 9, 2147483647], dtype=torch.int32)
     d = torch.tensor([1, -1, 0], dtype=torch.int32)
     c = torch.zeros(3, dtype=torch.int64)
+    lay = GenomeLayout(np.array([5000, 700]))
+    batch = ReadBatch(*(np.zeros(k, np.int32) for k in (3, 3, 3, 3, 3)),
+                      op_code=np.zeros(4, np.int32),
+                      op_len=np.full(4, 9, np.int32),
+                      op_read=np.array([0, 0, 1, 2], np.int32))
+    eng = CoverageEngine(lay, device="cpu")
     calls = {"pack_events": lambda: sweep.pack_events(p, p, 2147483647),
              "sort_events": lambda: sweep.sort_events(p, d),
-             "eval_pair": lambda: sweep.eval_pair(p, d, c, c, 1, p, p)}
+             "eval_pair": lambda: sweep.eval_pair(p, d, c, c, 1, p, p),
+             "extract_events": lambda: events.extract_events(
+                 p, p, p, p, p, p, p, c, c, 1796, -1),
+             "eval_boundaries": lambda: sweep.eval_boundaries(p, d, c, c,
+                                                              1, p),
+             "add_batch": lambda: eng.add_batch(batch)}
     with pytest.raises(ValueError, match="needs a CUDA tensor"):
         calls[fn]()
+    assert not any(kernels.launches.values())
 
 
 def test_unknown_device_raises():
