@@ -15,35 +15,51 @@ Phases, one line each; any failure exits non-zero:
             CRAM, BED, GFFs, FASTA); bench.py's own 8M-read, 3 Gb-shape
             BAM (12 x 250 Mb contigs, 150 bp reads, seed 42), generated
             into _smoke/ or reused; an exome-sized BED over it (200,000
-            regions of 150-300 bp, seed 5)
+            regions of 150-300 bp, seed 5); bench3gb.py's .list samples
+            (two 4M-read BAMs on the same contigs, its
+            _gen_list_extra_fixture) and its 8M-line PAF
+            (_write_paf_fixture); an unsorted 8M-read BAM (bench.py's
+            generator without its sort, no index)
 4. kernels  every kernel against its plain PyTorch twin on the card,
             array-equal, at the shapes of every main path of phase 6:
             the state that pandepth_tpu_torch.run.stage builds from the
-            fixture for chr (native: pack_events, sweep_scan, eval_pair,
-            eval_boundaries on 300 chr segments; timed), for bed (the
-            same on the exome BED's staged pairs and its 200,000
-            regions) and for the CIGAR feed (PANDEPTH_NO_NATIVE=1:
-            sweep_scan, eval_pair, eval_boundaries on every batch's
-            extract_events output); extract_events and eval_boundaries
-            on the fixture's first 2^20-read batch as
-            pandepth_tpu_torch.run.read_batches yields it (one op per
-            read; timed) and extract_events on a seeded 2^20-read
-            multi-op batch on the fixture's layout (timed); all of them
-            on edge cases (every position tier, wrap18, min_dep=3,
-            sentinel tails, every CIGAR op, filters, clipping, zero-op
-            reads, JAX-style padding, a 70,000-op read); the time of
-            each beside its twin's; the Python decoder's time per batch
+            fixture for chr with raw pairs (PANDEPTH_ENC=0: pack_events,
+            sweep_scan, eval_pair, eval_boundaries on 300 chr segments;
+            timed), for bed (the same on the exome BED's staged pairs and
+            its 200,000 regions), for the CIGAR feed
+            (PANDEPTH_NO_NATIVE=1: sweep_scan, eval_pair, eval_boundaries
+            on every batch's extract_events output), and for chr and the
+            .list with encoded windows (the card's default: decode_enc on
+            every stacked block, timed, and the whole finalize_encoded),
+            and for the unsorted BAM (the card's default, whose windows
+            the encoder cuts short: all of them staged as raw pairs);
+            extract_events and eval_boundaries on the fixture's first
+            2^20-read batch as pandepth_tpu_torch.run.read_batches yields
+            it (one op per read; timed) and extract_events on a seeded
+            2^20-read multi-op batch on the fixture's layout (timed); all
+            of them on edge cases (every position tier, wrap18,
+            min_dep=3, sentinel tails, every CIGAR op, filters, clipping,
+            zero-op reads, JAX-style padding, a 70,000-op read; every
+            code group, escapes in both planes, zero rows, partial
+            blocks, windows of 2^19 and of 5,000 slots); the time of each
+            beside its twin's; the Python decoder's time per batch; the
+            code groups and blocks of each encoded path; the bytes each
+            feed copies to the card and the copies' time
 5. golden   the port's CLI on cuda over the golden fixtures: chr, bed,
-            gene and gene_gc from the BAM, native and with
-            PANDEPTH_NO_NATIVE=1, and chr from the SAM (both ways) and
-            the CRAM; every table byte-equal to tests/golden/
+            gene and gene_gc from the BAM, native with encoded windows,
+            native with raw pairs and with PANDEPTH_NO_NATIVE=1, and chr
+            from the SAM (both ways) and the CRAM; every table byte-equal
+            to tests/golden/
 6. e2e      the main paths at full size, each with every kernel count set
             to 0 just before it and read just after, and every kernel it
             runs launched at least once:
-            chr     the port's CLI over the 8M-read fixture, twice in this
-                    process and once as a fresh ``python -m
-                    pandepth_tpu_torch.cli``; wall times, reads/s; every
-                    chr table byte-equal to the jax-free native host
+            chr     the port's CLI over the 8M-read fixture with raw pairs
+                    (PANDEPTH_ENC=0), twice in this process; wall times,
+                    reads/s
+            chr_enc the same with the card's default, encoded windows
+                    (decode_enc); then once as a fresh ``python -m
+                    pandepth_tpu_torch.cli``; every chr table byte-equal
+                    to the raw run's and to the jax-free native host
                     sweep's (pandepth_tpu.cli with PANDEPTH_HOST_FINALIZE=1,
                     a subprocess)
             cigar   the same with PANDEPTH_NO_NATIVE=1 (the Python decoder
@@ -52,12 +68,22 @@ Phases, one line each; any failure exits non-zero:
             step    coverage_step (the fused single-device step) on the
                     fixture's first batch and the chr bounds
             bed     -b with the exome BED (indexed fetch windows, ranged
-                    native stream); the table byte-equal to the host
+                    native stream, PANDEPTH_ENC=0); the table byte-equal
+                    to the host sweep's
+            list    the .list of the 8M-read fixture and the two 4M-read
+                    samples (16M reads pooled, encoded windows); the
+                    table byte-equal to the host sweep's
+            paf     the 8M-line PAF (the native PAF loader, raw pairs); the
+                    chr table byte-equal to the host sweep's
+            unsorted the unsorted BAM with the card's default and with raw
+                    pairs: no window reaches decode_enc, the peak device
+                    memory of each; both tables byte-equal to the host
                     sweep's
-7. profile  the cigar and bed runs once more under torch.profiler: host
-            wall, device time (the sum of every op's self device time),
-            the device's busy share, the largest ops, the peak device
-            memory; tables byte-equal to phase 6's
+7. profile  the cigar, bed, chr_enc and chr runs once more under
+            torch.profiler: host wall, device time (the sum of every op's
+            self device time), the device's busy share, the host->device
+            copies' time, the largest ops, the peak device memory; tables
+            byte-equal to phase 6's
 
 Then one JSON line of kernel results, and last
 ``{"ok": true, "device": {...}}``. This process imports nothing but
@@ -82,12 +108,17 @@ REPLACES = {"pack_events": "pandepth_tpu/device/engine.py:43",
             "sweep_scan": "pandepth_tpu/device/sweep.py:38",
             "eval_pair": "pandepth_tpu/device/sweep.py:66",
             "extract_events": "pandepth_tpu/device/events.py:40",
-            "eval_boundaries": "pandepth_tpu/device/sweep.py:89"}
+            "eval_boundaries": "pandepth_tpu/device/sweep.py:89",
+            "decode_enc": "pandepth_tpu/device/sweep.py:205"}
 # what each main path must launch
 PATHS = {"chr": ("pack_events", "sweep_scan", "eval_pair"),
+         "chr_enc": ("decode_enc", "sweep_scan", "eval_pair"),
          "cigar": ("extract_events", "sweep_scan", "eval_pair"),
          "step": ("extract_events", "sweep_scan", "eval_boundaries"),
-         "bed": ("pack_events", "sweep_scan", "eval_pair")}
+         "bed": ("pack_events", "sweep_scan", "eval_pair"),
+         "list": ("decode_enc", "sweep_scan", "eval_pair"),
+         "paf": ("pack_events", "sweep_scan", "eval_pair"),
+         "unsorted": ("pack_events", "sweep_scan", "eval_pair")}
 N_READS = 8_000_000
 BATCH_READS = 1 << 20   # RunConfig.max_reads_per_batch
 N_BED = 200_000
@@ -199,34 +230,95 @@ if not os.path.exists(bed):
             fh.write(f"{bench.GENOME[tid[k]][0]}\t{start[k]}\t{end[k]}\n")
     os.replace(bed + ".tmp", bed)
 print(bed)
+
+import bench3gb
+
+extra = [os.path.join(bench3gb.BENCH_DIR, f"bench3gb_s{k}.bam")
+         for k in (2, 3)]
+for k, path in zip((2, 3), extra):
+    if not os.path.exists(path):
+        bench3gb._gen_list_extra_fixture(path, k)
+lst = os.path.join(bench3gb.BENCH_DIR, "bench3gb.list")
+with open(lst, "w") as fh:
+    fh.write("\n".join([bench.ensure_fixture()] + extra) + "\n")
+print(lst)
+paf = os.path.join(bench3gb.BENCH_DIR, "bench3gb.paf")
+if not os.path.exists(paf):
+    bench3gb._write_paf_fixture(paf)
+print(paf)
+
+# bench.py's generator without its coordinate sort: nearly every start
+# delta escapes the encoder's codes, so it cuts each window short
+uns = os.path.join(bench3gb.BENCH_DIR, f"unsorted_{bench.N_READS}.bam")
+if not os.path.exists(uns):
+    from pandepth_tpu.io.bam_writer import write_uniform_bam
+
+    rng = np.random.RandomState(42)
+    n = bench.N_READS
+    lens = np.array([g[1] for g in bench.GENOME])
+    tid = rng.randint(0, len(bench.GENOME), n).astype(np.int32)
+    pos = (rng.rand(n) * (lens[tid] - 200)).astype(np.int32)
+    mapq = rng.choice([0, 10, 30, 60], n).astype(np.uint8)
+    flag = np.where(rng.rand(n) < 0.05, 1024, 0).astype(np.uint16)
+    write_uniform_bam(uns + ".tmp", [g[0] for g in bench.GENOME],
+                      [g[1] for g in bench.GENOME], tid, pos, flag, mapq,
+                      make_index=False)
+    os.replace(uns + ".tmp", uns)
+print(uns)
 """
 
 
 def setup(golden_dir: str):
     """Native library, golden fixtures, bench.py's 8M-read fixture (made
-    by bench.ensure_fixture itself, seed 42) and the exome BED; returns
-    (fixture path, BED path)."""
+    by bench.ensure_fixture itself, seed 42), the exome BED, bench3gb.py's
+    .list (the fixture and its two 4M-read samples), its PAF and the
+    unsorted BAM; returns (fixture, BED, .list, PAF, unsorted) paths."""
     env = dict(os.environ, PANDEPTH_BENCH_DIR=CACHE,
-               PANDEPTH_BENCH_READS=str(N_READS))
+               PANDEPTH_BENCH_READS=str(N_READS),
+               PANDEPTH_BENCH3GB_READS=str(N_READS))
     r = subprocess.run([sys.executable, "-c", SETUP, golden_dir,
                         str(N_BED)], cwd=ROOT, env=env, capture_output=True,
                        text=True)
     if r.returncode != 0:
         fail("setup", f"exited {r.returncode}: {r.stderr[-3000:]}")
     lines = r.stdout.strip().splitlines()
-    for line in lines[:-2]:
+    for line in lines[:-5]:
         say("setup", line)
-    return lines[-2], lines[-1]
+    return lines[-5:]
 
 
-class no_native:
-    """PANDEPTH_NO_NATIVE=1 inside the block: the Python decoders."""
+class env:
+    """Environment variables set (a value) or unset (None) inside the
+    block, restored after it."""
+
+    def __init__(self, **kw):
+        self.kw = kw
 
     def __enter__(self):
-        os.environ["PANDEPTH_NO_NATIVE"] = "1"
+        self.old = {k: os.environ.get(k) for k in self.kw}
+        self._apply(self.kw)
 
     def __exit__(self, *exc):
-        os.environ.pop("PANDEPTH_NO_NATIVE", None)
+        self._apply(self.old)
+
+    @staticmethod
+    def _apply(values):
+        for k, v in values.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def no_native():
+    """PANDEPTH_NO_NATIVE=1 inside the block: the Python decoders."""
+    return env(PANDEPTH_NO_NATIVE="1")
+
+
+def raw_pairs():
+    """PANDEPTH_ENC=0 inside the block: the native feed stages raw pairs
+    (pack_events) instead of the card's default, encoded windows."""
+    return env(PANDEPTH_ENC="0")
 
 
 class KernelCheck:
@@ -338,6 +430,43 @@ class KernelCheck:
                           *args, sentinel, pos_dtype), note)
         return got
 
+    def decode_cases(self, groups, pos_max: int, what: str,
+                     timed: bool = False, note: str = "") -> None:
+        """Each present code group through decode_enc and its twin; timed
+        as the decode of every group, kernel against twins."""
+        from pandepth_tpu_torch.device import sweep
+
+        def decoders(g):
+            if len(g) == 6:
+                return (sweep.decode_const_group,
+                        sweep.decode_const_group_reference)
+            return sweep.decode_enc_group, sweep.decode_enc_group_reference
+
+        present = [g for g in groups if g is not None]
+        for g in present:
+            kernel, twin = decoders(g)
+            self.compare("decode_enc", kernel(*g, pos_max=pos_max),
+                         twin(*g, pos_max=pos_max), what)
+        if timed:
+            self.time("decode_enc",
+                      lambda: [decoders(g)[0](*g, pos_max=pos_max)
+                               for g in present],
+                      lambda: [decoders(g)[1](*g, pos_max=pos_max)
+                               for g in present], note)
+
+    def finalize_enc_case(self, groups, cp, cd, lo, hi, pos_max: int,
+                          min_dep: int, wrap18: bool, what: str) -> None:
+        """The whole finalize_encoded (decode_enc into one buffer, the
+        library sort, sweep_scan, eval_pair) against its twin: all seven
+        outputs."""
+        from pandepth_tpu_torch.device import sweep
+
+        args = (*groups, cp, cd, lo, hi)
+        kw = dict(min_dep=min_dep, wrap18=wrap18, pos_max=pos_max)
+        self.compare("decode_enc", sweep.finalize_encoded(*args, **kw),
+                     sweep.finalize_encoded_reference(*args, **kw),
+                     what + ", whole finalize_encoded")
+
     def boundaries_case(self, pos_s, depth, c_cov, c_sum, min_dep: int, x,
                         what: str, timed: bool = False) -> None:
         from pandepth_tpu_torch.device import kernels, sweep
@@ -390,6 +519,51 @@ def sweep_edge_cases(check: KernelCheck, dev) -> None:
                                      f"wrap18={wrap18}")
 
 
+def enc_edge_cases(check: KernelCheck, dev) -> None:
+    """decode_enc on every code group of every tier: escapes in both
+    planes of the mixed format and in the const format's delta plane
+    (negative jumps wrap the uint32 tier), zero rows, short rows, a
+    partial block, windows of 2^19 slots (256 scan tiles a row) and of
+    5,000 (a ragged last tile); then the whole finalize_encoded over the
+    four groups, a raw chunk with a sentinel tail and 300 queries."""
+    import numpy as np
+    import torch
+
+    from pandepth_tpu_torch.device.convert import (enc_group_from_numpy,
+                                                   positions_to_words)
+    from pandepth_tpu_torch.synth import enc_group
+
+    rng = np.random.RandomState(8)
+    kinds = ((np.uint8, False), (np.uint16, False), (np.uint8, True),
+             (np.uint16, True))
+    for pos_dt, span in ((np.int32, 2_000_000_000),
+                         (np.uint32, 4_200_000_000),
+                         (np.int64, 17_000_000_000)):
+        pm = int(np.iinfo(pos_dt).max)
+        for cap, ce, rows in ((1 << 19, 1 << 13, (8, 3)),
+                              (5000, 64, (2, 1))):
+            groups = [enc_group_from_numpy(enc_group(
+                rng, code_dt, pos_dt, 10_000, span - 100_000, const, rows,
+                cap, ce)[0], pos_dt, dev) for code_dt, const in kinds]
+            what = (f"{np.dtype(pos_dt).name} tier, blocks of {rows} rows x "
+                    f"{cap} slots")
+            check.decode_cases(groups, pm, what)
+            s = rng.randint(0, span - 1000, 5000).astype(np.int64)
+            s = np.concatenate([s, np.full(77, pm, np.int64)])
+            e = np.where(s < pm, s + rng.randint(0, 500, s.shape[0]), pm)
+            raw = torch.from_numpy(positions_to_words(np.concatenate([s, e]),
+                                                      pos_dt)).to(dev)
+            live = torch.from_numpy((s < pm).astype(np.int32)).to(dev)
+            q = np.sort(rng.randint(0, span, 600))
+            lo, hi = (torch.from_numpy(positions_to_words(x, pos_dt)).to(dev)
+                      for x in (q[0::2], q[1::2]))
+            for min_dep, wrap18 in ((1, False), (3, True)):
+                check.finalize_enc_case(
+                    groups, [raw], [torch.cat([live, -live])], lo, hi, pm,
+                    min_dep, wrap18, f"{what}, min_dep={min_dep} "
+                                     f"wrap18={wrap18}")
+
+
 def device_cols(batch, dev):
     """A ReadBatch's seven int32 columns on ``dev``."""
     import numpy as np
@@ -433,46 +607,83 @@ def extract_edge_cases(check: KernelCheck, dev) -> None:
                             f"sentinel={sentinel}")
 
 
-def main_path_states(check: KernelCheck, bam: str, bed: str, dev):
+def main_path_states(check: KernelCheck, bam: str, bed: str, lst: str,
+                     uns: str, dev):
     """The device state that the port's run stages for each counted path,
-    through the kernels and their twins: chr (native; staged pairs and
-    the chr segments, timed), bed (native; the exome BED's staged pairs
-    and its regions) and cigar (PANDEPTH_NO_NATIVE=1; every batch's
-    extract_events output, dead slots included, and the chr segments).
-    Returns a description of each path's shape."""
+    through the kernels and their twins: chr with raw pairs
+    (PANDEPTH_ENC=0; staged pairs and the chr segments, timed), bed
+    (PANDEPTH_ENC=0; the exome BED's staged pairs and its regions), cigar
+    (PANDEPTH_NO_NATIVE=1; every batch's extract_events output, dead
+    slots included, and the chr segments), chr_enc and list (the card's
+    default, encoded windows; every stacked block through decode_enc,
+    timed, and the whole finalize_encoded with the raw pairs of the
+    windows staged on the host), and unsorted (the card's default; every
+    window short, so staged pairs alone). Returns a description of each
+    path's shape, and the bytes each path's feed copied to the card in
+    how many copies, with the seconds those copies took (the engine's
+    host clock around each synchronised copy: a copy from pageable
+    memory holds the host until it is staged)."""
     import torch
 
     from pandepth_tpu_torch.cli import parse_args
+    from pandepth_tpu_torch.device.engine import ENC_GROUPS, CoverageEngine
     from pandepth_tpu_torch.run import stage
 
-    shapes = {}
-    for path, extra in (("chr", []), ("bed", ["-b", bed]), ("cigar", [])):
-        cfg = parse_args(["pandepth", "-i", bam, *extra, "-o", os.devnull])
-        if path == "cigar":
-            with no_native():
-                st = stage(cfg, dev)
-        else:
+    shapes, h2d = {}, {}
+    CoverageEngine.time_copies = True
+    for path, inp, extra, way in (
+            ("chr", bam, [], raw_pairs), ("bed", bam, ["-b", bed], raw_pairs),
+            ("cigar", bam, [], no_native), ("chr_enc", bam, [], env),
+            ("list", lst, [], env), ("unsorted", uns, [], env)):
+        cfg = parse_args(["pandepth", "-i", inp, *extra, "-o", os.devnull])
+        with way():
             st = stage(cfg, dev)
         eng, t = st.engine, st.targets
-        lo, hi = eng.segment_bounds(t.gene_tid[t.seg_gene], t.seg_start,
-                                    t.seg_end)
-        q_lo, q_hi = eng.queries(lo, hi)
         what = f"{path} path ({eng.pos_dtype.__name__} tier)"
-        args = (eng.pos_sentinel, q_lo, q_hi, eng.min_dep, eng.wrap18, what)
+        detail = ""
+        n_win = sum(eng.n_windows.values())
+        if n_win:
+            detail = (f"{n_win} windows by group {eng.n_windows}; decoded "
+                      f"whole, {2 * eng.enc_cap * n_win} events; ")
         if path == "cigar":
             cp, cd = eng._event_chunks()
             pos, delta = torch.cat(cp), torch.cat(cd)
-            check.state_case(pos, delta, *args)
             n_events = int(pos.shape[0])
-        else:
+        elif not eng._has_enc:
             raw_s, raw_e = eng.upload_staged()
-            check.sweep_case(raw_s, raw_e, *args, timed=path == "chr")
             n_events = 2 * int(raw_s.shape[0])
-        shapes[path] = (f"{path} path ({n_events} events, "
+        else:
+            groups = eng._enc_args()
+            cp, cd = eng._event_chunks()
+            detail += (f"blocks "
+                       f"{ {g: len(eng._enc[g]) for g in ENC_GROUPS} }, ")
+            slots = sum(b[0].numel() // (1 if len(b) == 6 else 2)
+                        for g in ENC_GROUPS for b in eng._enc[g])
+            n_events = 2 * slots + sum(int(c.shape[0]) for c in cp)
+        if path == "unsorted" and (eng._has_enc or eng.n_windows["raw"] < 2):
+            fail("kernels", f"unsorted: windows not staged as raw pairs: "
+                            f"{eng.n_windows}")
+        h2d[path] = (eng.h2d_bytes, eng.h2d_copies, eng.h2d_seconds)
+        lo, hi = eng.segment_bounds(t.gene_tid[t.seg_gene], t.seg_start,
+                                    t.seg_end)
+        q_lo, q_hi = eng.queries(lo, hi)
+        args = (eng.pos_sentinel, q_lo, q_hi, eng.min_dep, eng.wrap18, what)
+        if path == "cigar":
+            check.state_case(pos, delta, *args)
+        elif not eng._has_enc:
+            check.sweep_case(raw_s, raw_e, *args, timed=path == "chr")
+        else:
+            check.decode_cases(groups, eng.pos_sentinel, what, timed=True,
+                               note="" if path == "chr_enc" else what)
+            check.finalize_enc_case(groups, cp, cd, q_lo, q_hi,
+                                    eng.pos_sentinel, eng.min_dep,
+                                    eng.wrap18, what)
+        shapes[path] = (f"{path} path ({detail}{n_events} events, "
                         f"{int(q_lo.shape[0])} segments, "
                         f"{eng.pos_dtype.__name__} tier)")
         del st, eng, args
-    return shapes
+    CoverageEngine.time_copies = False
+    return shapes, h2d
 
 
 class FirstBatch:
@@ -574,8 +785,9 @@ def counted(kernels, path: str, fn):
 
 def profiled(fn):
     """``fn`` once under torch.profiler. Returns (host wall s, device ms:
-    the sum of the device's kernels and copies, the largest of them as
-    (name, ms), peak device memory allocated in bytes)."""
+    the sum of the device's kernels and copies, the host->device copies'
+    ms, the largest ops as (name, ms), peak device memory allocated in
+    bytes)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -595,8 +807,9 @@ def profiled(fn):
                   if e.device_type == DeviceType.CUDA
                   and e.key != "Activity Buffer Request"
                   and e.self_device_time_total > 0), key=lambda o: -o[1])
-    return (wall, sum(ms for _, ms in ops), ops[:6],
-            torch.cuda.max_memory_allocated())
+    return (wall, sum(ms for _, ms in ops),
+            sum(ms for name, ms in ops if name.startswith("Memcpy HtoD")),
+            ops[:6], torch.cuda.max_memory_allocated())
 
 
 def golden(port_main, gdir: str, dev) -> int:
@@ -606,7 +819,7 @@ def golden(port_main, gdir: str, dev) -> int:
              "gene": ["-g", "{d}/t.gff", "-f", "CDS"],
              "gene_gc": ["-g", "{d}/safe.gff", "-c", "-r", "{d}/ref.fa"]}
     runs = [(f"{m} bam {way}", "golden.bam", m, way)
-            for m in modes for way in ("native", "no_native")]
+            for m in modes for way in ("native", "raw", "no_native")]
     runs += [("chr sam native", "golden.sam", "chr", "native"),
              ("chr sam no_native", "golden.sam", "chr", "no_native"),
              ("chr cram", "golden.cram", "chr", "native")]
@@ -615,10 +828,7 @@ def golden(port_main, gdir: str, dev) -> int:
         args = ["pandepth", "-i", os.path.join(gdir, inp), "-o",
                 os.path.join(gdir, "out"),
                 *(a.format(d=gdir) for a in modes[mode])]
-        if way == "no_native":
-            with no_native():
-                rc = port_main(args, device=dev)
-        else:
+        with {"native": env, "raw": raw_pairs, "no_native": no_native}[way]():
             rc = port_main(args, device=dev)
         if rc != 0:
             fail("golden", f"{what}: the port's CLI exited {rc}")
@@ -685,19 +895,24 @@ def main() -> int:
         if "Used" in line or "spill" in line:
             print("  " + line.strip(), flush=True)
 
+    # the election under test is the card's default
+    os.environ.pop("PANDEPTH_ENC", None)
     paths = {}
     with tempfile.TemporaryDirectory(dir=CACHE) as tmp:
         # 3. set-up
         t0 = time.perf_counter()
-        bam, bed = setup(tmp)
-        say("setup", f"{bam} ({os.path.getsize(bam)} bytes), {bed} "
+        bam, bed, lst, paf, uns = setup(tmp)
+        say("setup", f"{bam} ({os.path.getsize(bam)} bytes), {bed}, {lst}, "
+                     f"{paf} ({os.path.getsize(paf)} bytes), {uns} "
+                     f"({os.path.getsize(uns)} bytes) "
                      f"{time.perf_counter() - t0:.1f} s")
 
         # 4. kernels against their twins
         check = KernelCheck()
         sweep_edge_cases(check, dev)
         extract_edge_cases(check, dev)
-        states = main_path_states(check, bam, bed, dev)
+        enc_edge_cases(check, dev)
+        states, h2d = main_path_states(check, bam, bed, lst, uns, dev)
         t0 = time.perf_counter()
         fb = FirstBatch(bam, dev)
         say("kernels", f"the fixture's {len(fb.batch_s)} batches through the "
@@ -714,34 +929,48 @@ def main() -> int:
                                     f"ops, {fb.tier} tier)")
         shapes["eval_boundaries"] = (f"first batch's {2 * fb.m} int64 "
                                      f"events, {2 * fb.lo.shape[0]} bounds")
+        shapes["decode_enc"] = states["chr_enc"]
         for k in REPLACES:
             say("kernels", f"{k}: {check.cases[k]} cases array-equal to "
                            f"the twin; {shapes[k]} {check.ms[k]:.4f} ms, "
                            f"twin {check.plain_ms[k]:.4f} ms")
-        say("kernels", f"also array-equal at {states['bed']} and "
-                       f"{states['cigar']}")
+        say("kernels", f"also array-equal at {states['bed']}, "
+                       f"{states['cigar']}, {states['list']} and "
+                       f"{states['unsorted']}")
+        for path, (nbytes, n_copies, secs) in h2d.items():
+            say("kernels", f"host->device copies of the {path} feed: "
+                           f"{nbytes} bytes in {n_copies} copies, "
+                           f"{secs * 1e3:.3f} ms (host clock)")
         for note in check.notes:
             say("kernels", note)
 
         # 5. golden
         n_gold = golden(port_main, tmp, dev)
         say("golden", f"{n_gold} tables byte-equal to tests/golden/ (chr, "
-                      f"bed, gene, gene_gc from the BAM native and "
-                      f"no-native; chr from SAM both ways and CRAM)")
+                      f"bed, gene, gene_gc from the BAM: encoded windows, "
+                      f"raw pairs and no-native; chr from SAM both ways "
+                      f"and CRAM)")
 
         # 6. the real-size main paths, each counted on its own
-        def cli(out, *extra):
-            rc = port_main(["pandepth", "-i", bam, "-o",
+        def cli(out, *extra, inp=bam):
+            rc = port_main(["pandepth", "-i", inp, "-o",
                             os.path.join(tmp, out), *extra], device=dev)
             if rc != 0:
                 fail("e2e", f"the port's CLI ({out}) exited {rc}")
 
-        # chr, native stream
-        _, paths["chr"], wall = counted(kernels, "chr",
-                                        lambda: cli("port", "-v"))
-        t0 = time.perf_counter()
-        cli("port2")
-        wall2 = time.perf_counter() - t0
+        def timed(fn):
+            t0 = time.perf_counter()
+            fn()
+            return time.perf_counter() - t0
+
+        # chr, native stream, raw pairs and then encoded windows
+        with raw_pairs():
+            _, paths["chr"], wall = counted(kernels, "chr",
+                                            lambda: cli("port", "-v"))
+            wall2 = timed(lambda: cli("port2"))
+        _, paths["chr_enc"], enc_wall = counted(kernels, "chr_enc",
+                                                lambda: cli("enc", "-v"))
+        enc_wall2 = timed(lambda: cli("enc2"))
         # a user's run: a fresh process that imports torch, makes its CUDA
         # context and loads both libraries (the kernels are built already)
         t0 = time.perf_counter()
@@ -757,20 +986,23 @@ def main() -> int:
                     if ln.startswith("INFO: wall=")]
         host_wall = host_sweep(["-i", bam], os.path.join(tmp, "host"))
         port_tab = table(os.path.join(tmp, "port"))
-        for other in ("host", "port2", "cold"):
+        for other in ("host", "port2", "enc", "enc2", "cold"):
             if table(os.path.join(tmp, other)) != port_tab:
                 fail("e2e", f"chr table of the {other} run differs from "
-                            f"the port's")
-        say("e2e", f"chr mode, {N_READS} reads, CLI process (user wall): "
-                   f"{cold_wall:.3f} s ({N_READS / cold_wall:.0f} reads/s); "
-                   f"its run alone {cold_run[-1][6:] if cold_run else '?'}")
-        say("e2e", f"chr in this process (steady state): {wall:.3f} s "
-                   f"({N_READS / wall:.0f} reads/s), again {wall2:.3f} s "
-                   f"({N_READS / wall2:.0f} reads/s); launches "
-                   f"{paths['chr']}")
-        say("e2e", f"chr tables byte-equal to the host sweep's "
-                   f"({len(port_tab.splitlines())} lines; host sweep CLI "
-                   f"process {host_wall:.3f} s)")
+                            f"the raw-pair run's")
+        say("e2e", f"chr mode, {N_READS} reads, CLI process (user wall, "
+                   f"encoded windows): {cold_wall:.3f} s "
+                   f"({N_READS / cold_wall:.0f} reads/s); its run alone "
+                   f"{cold_run[-1][6:] if cold_run else '?'}")
+        say("e2e", f"chr in this process, raw pairs (PANDEPTH_ENC=0): "
+                   f"{wall:.3f} s ({N_READS / wall:.0f} reads/s), again "
+                   f"{wall2:.3f} s; launches {paths['chr']}")
+        say("e2e", f"chr_enc in this process, encoded windows (default): "
+                   f"{enc_wall:.3f} s ({N_READS / enc_wall:.0f} reads/s), "
+                   f"again {enc_wall2:.3f} s; launches {paths['chr_enc']}")
+        say("e2e", f"chr tables of both feeds byte-equal to each other and "
+                   f"to the host sweep's ({len(port_tab.splitlines())} "
+                   f"lines; host sweep CLI process {host_wall:.3f} s)")
 
         # chr through the Python decoder and the CIGAR feed
         with no_native():
@@ -804,9 +1036,10 @@ def main() -> int:
                    f"call, host clock); launches {paths['step']}; equal to "
                    f"the composition of the twins")
 
-        # -b with an exome-sized BED
-        _, paths["bed"], wall = counted(
-            kernels, "bed", lambda: cli("bedport", "-b", bed, "-v"))
+        # -b with an exome-sized BED, raw pairs
+        with raw_pairs():
+            _, paths["bed"], wall = counted(
+                kernels, "bed", lambda: cli("bedport", "-b", bed, "-v"))
         host_wall = host_sweep(["-i", bam, "-b", bed],
                                os.path.join(tmp, "bedhost"))
         bed_tab = table(os.path.join(tmp, "bedport"), "bed")
@@ -817,20 +1050,81 @@ def main() -> int:
                    f"sweep's ({len(bed_tab.splitlines())} lines; host sweep "
                    f"CLI process {host_wall:.3f} s)")
 
-        # 7. profile: the cigar and bed runs once more, traced
+        # the .list: three samples pooled, encoded windows
+        n_list = N_READS + 2 * (N_READS // 2)
+        _, paths["list"], wall = counted(
+            kernels, "list", lambda: cli("listport", "-v", inp=lst))
+        host_wall = host_sweep(["-i", lst], os.path.join(tmp, "listhost"))
+        list_tab = table(os.path.join(tmp, "listport"))
+        if list_tab != table(os.path.join(tmp, "listhost")):
+            fail("e2e", "list: table differs from the host sweep's")
+        say("e2e", f"list (3 BAMs, {n_list} reads pooled): {wall:.3f} s in "
+                   f"this process ({n_list / wall:.0f} reads/s); launches "
+                   f"{paths['list']}; table byte-equal to the host sweep's "
+                   f"(host sweep CLI process {host_wall:.3f} s)")
+
+        # PAF: the native PAF loader's pairs
+        _, paths["paf"], wall = counted(
+            kernels, "paf", lambda: cli("pafport", "-v", inp=paf))
+        host_wall = host_sweep(["-i", paf], os.path.join(tmp, "pafhost"))
+        paf_tab = table(os.path.join(tmp, "pafport"))
+        if paf_tab != table(os.path.join(tmp, "pafhost")):
+            fail("e2e", "paf: table differs from the host sweep's")
+        say("e2e", f"paf ({N_READS} lines): {wall:.3f} s in this process "
+                   f"({N_READS / wall:.0f} lines/s); launches "
+                   f"{paths['paf']}; chr table byte-equal to the host "
+                   f"sweep's (host sweep CLI process {host_wall:.3f} s)")
+
+        # the unsorted BAM: the card's default election, then raw pairs.
+        # Its header declares coordinate order, which the host sweep's
+        # streaming fold verifies, so the host sweep runs without the fold
+        def peak_mb(fn):
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            out = fn()
+            return out, (torch.cuda.max_memory_allocated() - base) / 2**20
+
+        (_, paths["unsorted"], wall), peak = peak_mb(lambda: counted(
+            kernels, "unsorted", lambda: cli("unsport", "-v", inp=uns)))
+        if paths["unsorted"]["decode_enc"]:
+            fail("e2e", "unsorted: a window cut short reached decode_enc")
+        with raw_pairs():
+            raw_wall, raw_peak = peak_mb(
+                lambda: timed(lambda: cli("unsraw", inp=uns)))
+        with env(PANDEPTH_STREAM_FOLD="0"):
+            host_wall = host_sweep(["-i", uns], os.path.join(tmp, "unshost"))
+        uns_tab = table(os.path.join(tmp, "unsport"))
+        for other in ("unsraw", "unshost"):
+            if table(os.path.join(tmp, other)) != uns_tab:
+                fail("e2e", f"unsorted: the {other} table differs from the "
+                            f"default run's")
+        say("e2e", f"unsorted ({N_READS} reads): default election "
+                   f"{wall:.3f} s, peak device memory {peak:.1f} MiB above "
+                   f"the smoke's own tensors; raw pairs (PANDEPTH_ENC=0) "
+                   f"{raw_wall:.3f} s, {raw_peak:.1f} MiB; launches "
+                   f"{paths['unsorted']}; tables byte-equal to each other "
+                   f"and to the host sweep's (host sweep CLI process "
+                   f"{host_wall:.3f} s)")
+
+        # 7. profile: the cigar, bed and both chr runs once more, traced
         with no_native():
-            prof_cigar = profiled(lambda: cli("cigarprof"))
-        prof_bed = profiled(lambda: cli("bedprof", "-b", bed))
-        if table(os.path.join(tmp, "cigarprof")) != port_tab or \
+            prof = {"cigar": profiled(lambda: cli("cigarprof"))}
+        with raw_pairs():
+            prof["bed"] = profiled(lambda: cli("bedprof", "-b", bed))
+            prof["chr"] = profiled(lambda: cli("chrprof"))
+        prof["chr_enc"] = profiled(lambda: cli("encprof"))
+        if any(table(os.path.join(tmp, f"{p}prof")) != port_tab
+               for p in ("cigar", "chr", "enc")) or \
                 table(os.path.join(tmp, "bedprof"), "bed") != bed_tab:
             fail("profile", "a profiled run's table differs from phase 6's")
-        for path, (pwall, dev_ms, ops, peak) in (("cigar", prof_cigar),
-                                                 ("bed", prof_bed)):
+        for path, (pwall, dev_ms, h2d_ms, ops, peak) in prof.items():
             top = "; ".join(f"{name[:60]} {ms:.3f} ms" for name, ms in ops)
             say("profile", f"{path}: wall {pwall:.3f} s, device time "
                            f"{dev_ms:.3f} ms (busy "
-                           f"{100 * dev_ms / 1e3 / pwall:.4f}%), peak device "
-                           f"memory {peak} bytes; largest: {top}")
+                           f"{100 * dev_ms / 1e3 / pwall:.4f}%), host->device "
+                           f"copies {h2d_ms:.3f} ms, peak device memory "
+                           f"{peak} bytes; largest: {top}")
 
     if "jax" in sys.modules:
         fail("imports", "jax was imported")

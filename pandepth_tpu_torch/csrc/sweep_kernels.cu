@@ -1,5 +1,5 @@
-// Hand-written Hopper (sm_90a) kernels for the coverage sweep and the
-// CIGAR-extraction feed.
+// Hand-written Hopper (sm_90a) kernels for the coverage sweep, the
+// CIGAR-extraction feed and the encoded-window decode.
 //
 // Plain C interface, built with nvcc and loaded with ctypes by
 // pandepth_tpu_torch/device/kernels.py. Every entry point launches on
@@ -452,6 +452,217 @@ __global__ void emit_events_kernel(const int32_t* __restrict__ tid,
     }
 }
 
+// ---------------------------------------------------------------------
+// K8 decode_enc — replaces the decode half of
+// pandepth_tpu/device/sweep.py:finalize_encoded (:205), that is
+// _decode_enc_group (:133, the mixed format) and _decode_const_group
+// (:175, the const-length format); the sort and the scans after it are
+// K2 + K3, as in JAX.
+// A window row r of CAP slots decodes to start[r, j] = base[r] +
+// sum_{k <= j} delta[r, k] and end = start + len, where delta is the
+// zigzag decode of a u8/u16 code and each escape slot (code = the code
+// type's max) takes its true value from an int64 side list: JAX adds
+// (exc - zig(esc)) at the slot, and so does this kernel. The mixed
+// format carries a length plane with escapes of its own; the const
+// format one length per row for its first ns[r] slots, 0 after them.
+// Bound on the H100: memory. Per slot it reads 1-2 B of codes per plane
+// and writes the start and end words and their +-1 deltas, then re-reads
+// and re-writes the two words: ~40 B per slot in the int32 tier, ~58 B
+// in the others. The sums are row scans of 2^19 slots, so one block per
+// row would leave most of the 132 SMs idle at 8-32 rows; the design is
+// sweep_scan's multi-pass one, per row, over a (tiles, rows) grid:
+//   1. decoded deltas and lengths into the output words, the +-1
+//      deltas, per-tile delta totals                 (dec_init_kernel)
+//   2. one thread per escape entry: its correction added to the slot
+//      and to the slot's tile total (atomics; slots are distinct within
+//      a row, so they never contend)                (dec_escape_kernel)
+//   3. per row, an exclusive scan of the tile totals from the row's
+//      base                                          (dec_row_scan_kernel)
+//   4. per tile, the in-tile scan from its carry: starts, then ends =
+//      start + len, in place                        (dec_scan_kernel)
+// Tier arithmetic (A): JAX computes in the position dtype, and int32 and
+// uint32 wrap there, so the two 32-bit tiers sum in uint32 (the uint32
+// tier's words are then zero-extended to int64) and the int64 tier in
+// uint64. The output words (W) are int32 in the int32 tier, int64 else.
+// Zero tail slots and zero rows decode to zero-length events at the
+// previous position: depth-neutral, and kept, as in JAX.
+
+template <typename C, typename W, typename A, bool CONST>
+__global__ void dec_init_kernel(const C* __restrict__ codes,
+                                const int32_t* __restrict__ lens,
+                                const int32_t* __restrict__ ns, int64_t cap,
+                                int64_t ntiles, W* __restrict__ starts,
+                                W* __restrict__ ends,
+                                int32_t* __restrict__ ds,
+                                int32_t* __restrict__ de,
+                                u64* __restrict__ tot) {
+    __shared__ A warp_tot[32];
+    const int64_t r = blockIdx.y;
+    const int64_t tile = blockIdx.x;
+    const C* cd = codes + r * (CONST ? 1 : 2) * cap;
+    A s = 0;
+#pragma unroll
+    for (int k = 0; k < ITEMS; ++k) {
+        const int64_t j = tile * TILE + (int64_t)k * THREADS + threadIdx.x;
+        if (j < cap) {
+            const A z = (A)cd[j];
+            const A delta = (z >> 1) ^ ((A)0 - (z & (A)1));
+            A len;
+            if (CONST) len = j < ns[r] ? (A)(int64_t)lens[r] : (A)0;
+            else len = (A)cd[cap + j];
+            const int64_t i = r * cap + j;
+            starts[i] = (W)delta;
+            ends[i] = (W)len;
+            ds[i] = 1;
+            de[i] = -1;
+            s += delta;
+        }
+    }
+    A block_total;
+    block_exclusive_scan<A>(s, warp_tot, &block_total);
+    if (threadIdx.x == 0) tot[r * ntiles + tile] = (u64)block_total;
+}
+
+template <typename W>
+__device__ __forceinline__ void word_add(W* p, u64 v);
+template <>
+__device__ __forceinline__ void word_add<int32_t>(int32_t* p, u64 v) {
+    atomicAdd(reinterpret_cast<unsigned int*>(p), (unsigned int)v);
+}
+template <>
+__device__ __forceinline__ void word_add<int64_t>(int64_t* p, u64 v) {
+    atomicAdd(reinterpret_cast<u64*>(p), v);
+}
+
+template <typename W, typename A, bool CONST>
+__global__ void dec_escape_kernel(const int64_t* __restrict__ excs,
+                                  const int32_t* __restrict__ slots,
+                                  int64_t cap, int64_t ce, int64_t ntiles,
+                                  int64_t esc, W* __restrict__ starts,
+                                  W* __restrict__ ends,
+                                  u64* __restrict__ tot) {
+    const int64_t r = blockIdx.y;
+    const int64_t k = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+    if (k >= ce) return;
+    // zig(esc): what the plain zigzag decode gave the escape slot
+    const int64_t zig_esc = (esc >> 1) ^ -(esc & 1);
+    const int64_t row = r * (CONST ? 1 : 2) * ce;
+    // unused entries hold CAP; anything outside [0, CAP) is dropped, as
+    // JAX's scatter drops it
+    const int32_t sd = slots[row + k];
+    if (sd >= 0 && sd < cap) {
+        const A corr = (A)(excs[row + k] - zig_esc);
+        word_add<W>(starts + r * cap + sd, (u64)corr);
+        atomicAdd(tot + r * ntiles + sd / TILE, (u64)corr);
+    }
+    if (!CONST) {
+        const int32_t sl = slots[row + ce + k];
+        if (sl >= 0 && sl < cap)
+            word_add<W>(ends + r * cap + sl,
+                        (u64)(A)(excs[row + ce + k] - esc));
+    }
+}
+
+// Per row: tile totals -> exclusive prefixes starting at the row's base.
+// One block of TOTALS_THREADS per row.
+template <typename W, typename A>
+__global__ void dec_row_scan_kernel(const W* __restrict__ bases,
+                                    int64_t ntiles, u64* __restrict__ tot) {
+    __shared__ A warp_tot[32];
+    u64* t = tot + (int64_t)blockIdx.x * ntiles;
+    A carry = (A)bases[blockIdx.x];
+    for (int64_t b = 0; b < ntiles; b += blockDim.x) {
+        const int64_t i = b + threadIdx.x;
+        const A v = i < ntiles ? (A)t[i] : (A)0;
+        A chunk_total;
+        const A ex = block_exclusive_scan<A>(v, warp_tot, &chunk_total);
+        if (i < ntiles) t[i] = (u64)(carry + ex);
+        carry += chunk_total;
+    }
+}
+
+template <typename W, typename A>
+__global__ void dec_scan_kernel(int64_t cap, int64_t ntiles,
+                                const u64* __restrict__ tot,
+                                W* __restrict__ starts,
+                                W* __restrict__ ends) {
+    __shared__ A warp_tot[32];
+    const int64_t r = blockIdx.y;
+    const int64_t j0 = (int64_t)blockIdx.x * TILE
+                       + (int64_t)threadIdx.x * ITEMS;
+    W* st = starts + r * cap;
+    W* en = ends + r * cap;
+    A d[ITEMS];
+    A s = 0;
+#pragma unroll
+    for (int k = 0; k < ITEMS; ++k) {
+        d[k] = j0 + k < cap ? (A)st[j0 + k] : (A)0;
+        s += d[k];
+    }
+    A block_total;
+    A run = block_exclusive_scan<A>(s, warp_tot, &block_total)
+            + (A)tot[r * ntiles + blockIdx.x];
+#pragma unroll
+    for (int k = 0; k < ITEMS; ++k) {
+        const int64_t j = j0 + k;
+        run += d[k];
+        if (j < cap) {
+            st[j] = (W)run;
+            en[j] = (W)(run + (A)en[j]);
+        }
+    }
+}
+
+template <typename C, typename W, typename A, bool CONST>
+int decode_enc_typed(const C* codes, const int64_t* excs,
+                     const int32_t* slots, const W* bases,
+                     const int32_t* lens, const int32_t* ns, int64_t rows,
+                     int64_t cap, int64_t ce, W* starts, W* ends,
+                     int32_t* ds, int32_t* de, int64_t* scratch,
+                     cudaStream_t st) {
+    const int64_t ntiles = (cap + TILE - 1) / TILE;
+    u64* tot = reinterpret_cast<u64*>(scratch);
+    const dim3 tiles((unsigned int)ntiles, (unsigned int)rows);
+    dec_init_kernel<C, W, A, CONST><<<tiles, THREADS, 0, st>>>(
+        codes, lens, ns, cap, ntiles, starts, ends, ds, de, tot);
+    if (ce > 0) {
+        const dim3 entries((unsigned int)((ce + POINT_THREADS - 1)
+                                          / POINT_THREADS),
+                           (unsigned int)rows);
+        dec_escape_kernel<W, A, CONST><<<entries, POINT_THREADS, 0, st>>>(
+            excs, slots, cap, ce, ntiles, (int64_t)(C)~(C)0, starts, ends,
+            tot);
+    }
+    dec_row_scan_kernel<W, A><<<(unsigned int)rows, TOTALS_THREADS, 0, st>>>(
+        bases, ntiles, tot);
+    dec_scan_kernel<W, A><<<tiles, THREADS, 0, st>>>(cap, ntiles, tot,
+                                                     starts, ends);
+    return (int)cudaGetLastError();
+}
+
+template <typename C, bool CONST>
+int decode_enc_tier(int tier, const void* codes, const int64_t* excs,
+                    const int32_t* slots, const void* bases,
+                    const int32_t* lens, const int32_t* ns, int64_t rows,
+                    int64_t cap, int64_t ce, void* starts, void* ends,
+                    int32_t* ds, int32_t* de, int64_t* scratch,
+                    cudaStream_t st) {
+    const C* c = (const C*)codes;
+    if (tier == TIER_I32)
+        return decode_enc_typed<C, int32_t, uint32_t, CONST>(
+            c, excs, slots, (const int32_t*)bases, lens, ns, rows, cap, ce,
+            (int32_t*)starts, (int32_t*)ends, ds, de, scratch, st);
+    if (tier == TIER_U32)
+        return decode_enc_typed<C, int64_t, uint32_t, CONST>(
+            c, excs, slots, (const int64_t*)bases, lens, ns, rows, cap, ce,
+            (int64_t*)starts, (int64_t*)ends, ds, de, scratch, st);
+    if (tier == TIER_I64)
+        return decode_enc_typed<C, int64_t, u64, CONST>(
+            c, excs, slots, (const int64_t*)bases, lens, ns, rows, cap, ce,
+            (int64_t*)starts, (int64_t*)ends, ds, de, scratch, st);
+    return (int)cudaErrorInvalidValue;
+}
+
 inline unsigned int point_blocks(int64_t n) {
     const int64_t b = (n + POINT_THREADS - 1) / POINT_THREADS;
     return (unsigned int)(b < (1 << 20) ? b : (1 << 20));
@@ -622,6 +833,44 @@ int pdt_extract_events(int device, const int32_t* tid, const int32_t* pos,
             sentinel, (int32_t*)ev_pos, ev_delta);
     }
     return (int)cudaGetLastError();
+}
+
+// K8 on one stacked block of `rows` windows of `cap` slots: codes are
+// (rows, 2, cap) in the mixed format (plane 0 the zigzag start deltas,
+// plane 1 the lengths) or (rows, cap) with `lens` and `ns` per row in
+// the const format; uint8 or, with code16, uint16. excs/slots are
+// (rows, 2, ce) or (rows, ce). bases and the outputs are the tier's
+// words. Row r's starts go to starts[r * cap ...], its ends to
+// ends[r * cap ...], +1 to ds and -1 to de at the same slots. scratch:
+// rows * ceil(cap / pdt_sweep_scan_tile()) int64 words.
+int pdt_decode_enc(int device, int tier, int code16, int is_const,
+                   const void* codes, const int64_t* excs,
+                   const int32_t* slots, const void* bases,
+                   const int32_t* lens, const int32_t* ns, int64_t rows,
+                   int64_t cap, int64_t ce, void* starts, void* ends,
+                   int32_t* ds, int32_t* de, int64_t* scratch,
+                   void* stream) {
+    cudaError_t err = cudaSetDevice(device);
+    if (err != cudaSuccess) return (int)err;
+    if (rows <= 0 || cap <= 0) return (int)cudaGetLastError();
+    if (rows > 65535) return (int)cudaErrorInvalidValue;  // grid.y
+    cudaStream_t st = (cudaStream_t)stream;
+    if (code16)
+        return is_const
+            ? decode_enc_tier<uint16_t, true>(tier, codes, excs, slots, bases,
+                                              lens, ns, rows, cap, ce, starts,
+                                              ends, ds, de, scratch, st)
+            : decode_enc_tier<uint16_t, false>(tier, codes, excs, slots,
+                                               bases, lens, ns, rows, cap, ce,
+                                               starts, ends, ds, de, scratch,
+                                               st);
+    return is_const
+        ? decode_enc_tier<uint8_t, true>(tier, codes, excs, slots, bases,
+                                         lens, ns, rows, cap, ce, starts,
+                                         ends, ds, de, scratch, st)
+        : decode_enc_tier<uint8_t, false>(tier, codes, excs, slots, bases,
+                                          lens, ns, rows, cap, ce, starts,
+                                          ends, ds, de, scratch, st);
 }
 
 }  // extern "C"

@@ -64,3 +64,49 @@ def state_to_numpy(pos_s: torch.Tensor, depth: torch.Tensor,
     back in ``pos_dtype``."""
     return (pos_s.cpu().numpy().astype(pos_dtype, copy=False),
             depth.cpu().numpy(), c_cov.cpu().numpy(), c_sum.cpu().numpy())
+
+
+def code_words(code_dtype) -> type:
+    """The numpy dtype whose bytes carry a code plane to the device:
+    uint8 as it is, uint16 as its raw bits in int16, because PyTorch's
+    uint16 has almost no arithmetic. Never a wider type, which would
+    multiply the bytes that cross."""
+    if np.dtype(code_dtype) == np.uint16:
+        return np.int16
+    if np.dtype(code_dtype) != np.uint8:
+        raise ValueError(f"codes must be uint8 or uint16, not {code_dtype}")
+    return np.uint8
+
+
+def codes_to_torch(codes: np.ndarray) -> torch.Tensor:
+    """A uint8 or uint16 code block as a tensor of the same bytes (see
+    :func:`code_words`)."""
+    codes = np.ascontiguousarray(codes)
+    return torch.from_numpy(codes.view(code_words(codes.dtype)))
+
+
+def positions_to_words(pos: np.ndarray, pos_dtype) -> np.ndarray:
+    """Positions of the ``pos_dtype`` tier as the port's device words:
+    int32 for the int32 tier, zero-extended int64 for the uint32 tier,
+    int64 for the int64 tier."""
+    words = np.int32 if device_pos_dtype(pos_dtype) == torch.int32 \
+        else np.int64
+    return np.asarray(pos).astype(pos_dtype).astype(words)
+
+
+def enc_group_from_numpy(group, pos_dtype, device) -> tuple:
+    """One group operand of the JAX package's ``finalize_encoded``, as
+    numpy arrays (tuples of code, escape and slot blocks, the bases, and
+    for the const format the lens and ns), as the port's tensors on
+    ``device``: codes by :func:`codes_to_torch`, escapes int64, slots,
+    lens and ns int32, bases in the tier's words."""
+    codes, excs, slots, bases, *const = group
+
+    def dev(a, dt=None):
+        return torch.from_numpy(np.array(a, dt) if dt else a).to(device)
+
+    return (tuple(codes_to_torch(c).to(device) for c in codes),
+            tuple(dev(e, np.int64) for e in excs),
+            tuple(dev(s, np.int32) for s in slots),
+            dev(positions_to_words(bases, pos_dtype)),
+            *(dev(a, np.int32) for a in const))

@@ -37,7 +37,7 @@ TIER_I32, TIER_U32, TIER_I64 = 0, 1, 2
 #: launches per kernel since the last :func:`reset_launches`
 launches: Dict[str, int] = {"pack_events": 0, "sweep_scan": 0,
                             "eval_pair": 0, "extract_events": 0,
-                            "eval_boundaries": 0}
+                            "eval_boundaries": 0, "decode_enc": 0}
 #: ptxas's register / shared-memory report from the last build
 build_log: str = ""
 
@@ -115,6 +115,11 @@ def library() -> ctypes.CDLL:
                                            vp, vp, vp, i64, vp, vp, i64, i32,
                                            i32, ctypes.c_int, i64, vp, vp,
                                            vp, vp]
+        lib.pdt_decode_enc.restype = ctypes.c_int
+        lib.pdt_decode_enc.argtypes = [ctypes.c_int, ctypes.c_int,
+                                       ctypes.c_int, ctypes.c_int, vp, vp,
+                                       vp, vp, vp, vp, i64, i64, i64, vp,
+                                       vp, vp, vp, vp, vp]
         _lib = lib
         return lib
 
@@ -303,3 +308,80 @@ def extract_events(tid: torch.Tensor, pos: torch.Tensor, flag: torch.Tensor,
             _p(ev_delta), _p(scratch), _stream(tid)))
         launches["extract_events"] += 1
     return ev_pos, ev_delta
+
+
+def _word(tier: int) -> torch.dtype:
+    return torch.int32 if tier == TIER_I32 else torch.int64
+
+
+def decode_enc(codes: torch.Tensor, excs: torch.Tensor, slots: torch.Tensor,
+               bases: torch.Tensor, lens: Optional[torch.Tensor],
+               ns: Optional[torch.Tensor], tier: int, pos: torch.Tensor,
+               delta: torch.Tensor, s_off: int, e_off: int) -> None:
+    """K8 on one stacked block of B windows, written in place into the
+    event buffer ``pos``/``delta``: row r's CAP starts at
+    ``pos[s_off + r * CAP:]`` and its ends at ``pos[e_off + r * CAP:]``,
+    with +1 and -1 at the same slots of ``delta``.
+
+    ``codes`` is (B, 2, CAP) in the mixed format or (B, CAP) in the const
+    format (then ``lens`` and ``ns`` are (B,) int32), uint8, or uint16
+    carried as its int16 bits; ``excs`` (int64) and ``slots`` (int32) are
+    (B, 2, CE) or (B, CE); ``bases`` and ``pos`` are the tier's words."""
+    const = codes.dim() == 2
+    word = _word(tier)
+    if codes.dtype not in (torch.uint8, torch.int16):
+        raise ValueError(f"decode_enc: codes must be uint8 or int16 (uint16 "
+                         f"bits), got {codes.dtype}")
+    shape = tuple(codes.shape)
+    if const != (lens is not None) or const != (ns is not None) \
+            or not (const or (codes.dim() == 3 and shape[1] == 2)):
+        raise ValueError(f"decode_enc: codes of shape {shape} need lens "
+                         f"and ns exactly in the const format")
+    rows, cap = shape[0], shape[-1]
+    ce = excs.shape[-1]
+    if tuple(excs.shape) != shape[:-1] + (ce,) \
+            or slots.shape != excs.shape or tuple(bases.shape) != (rows,) \
+            or (const and (tuple(lens.shape) != (rows,)
+                           or tuple(ns.shape) != (rows,))):
+        raise ValueError("decode_enc: inconsistent block shapes")
+    for name, t, dt in (("codes", codes, codes.dtype),
+                        ("excs", excs, torch.int64),
+                        ("slots", slots, torch.int32),
+                        ("bases", bases, word),
+                        *((("lens", lens, torch.int32),
+                           ("ns", ns, torch.int32)) if const else ())):
+        if t.device.type != "cuda" or t.dtype != dt \
+                or not t.is_contiguous():
+            raise ValueError(f"decode_enc: {name} must be a contiguous "
+                             f"{dt} CUDA tensor, got {t.dtype} on "
+                             f"{t.device}")
+    _require("decode_enc", pos, word)
+    _require("decode_enc", delta, torch.int32)
+    _one_device("decode_enc", codes, excs, slots, bases, pos, delta)
+    n = rows * cap
+    if delta.shape != pos.shape or min(s_off, e_off) < 0 \
+            or max(s_off, e_off) + n > pos.shape[0] \
+            or abs(s_off - e_off) < n:
+        raise ValueError("decode_enc: the block's start and end slots do "
+                         "not fit the event buffer apart")
+    if rows > 65535:
+        raise ValueError(f"decode_enc: {rows} rows in one block (at most "
+                         f"65535)")
+    if n == 0:
+        return
+    lib = library()
+    ntiles = -(-cap // lib.pdt_sweep_scan_tile())
+    scratch = torch.empty(rows * ntiles, dtype=torch.int64,
+                          device=pos.device)
+    ps, pd = pos.element_size(), delta.element_size()
+    none = ctypes.c_void_p(0)
+    _check("decode_enc", lib.pdt_decode_enc(
+        pos.get_device(), tier, int(codes.dtype == torch.int16), int(const),
+        _p(codes), _p(excs), _p(slots), _p(bases),
+        _p(lens) if const else none, _p(ns) if const else none, rows, cap,
+        ce, ctypes.c_void_p(pos.data_ptr() + s_off * ps),
+        ctypes.c_void_p(pos.data_ptr() + e_off * ps),
+        ctypes.c_void_p(delta.data_ptr() + s_off * pd),
+        ctypes.c_void_p(delta.data_ptr() + e_off * pd), _p(scratch),
+        _stream(pos)))
+    launches["decode_enc"] += 1

@@ -1,14 +1,18 @@
-"""The single-file run on PyTorch: ``pandepth -i x.{bam,sam,sam.gz,cram}
--o out`` in chr mode, or with ``-g``/``-b`` targets or ``-w`` windows
-of 150 bp and more.
+"""The run on PyTorch: ``pandepth -i x.{bam,sam,sam.gz,cram,paf[.gz]}
+-o out``, or ``-i files.list`` (several samples pooled into one table),
+in chr mode, or with ``-g``/``-b`` targets or ``-w`` windows of 150 bp
+and more.
 
 It composes the jax-free helpers of ``pandepth_tpu.run`` around the
 port's :class:`~pandepth_tpu_torch.device.engine.CoverageEngine`: the
 header read, the target synthesis, the fetch-window and region-cursor
-read filters, the native loaders and their feed, the Python decoders,
-and the table writer. The feed is dispatched in
-``pandepth_tpu.run.run_alignment``'s order. Inputs and flags outside
-this slice exit non-zero with a message naming the ROADMAP.md item that
+read filters, the native loaders and their feed (encoded windows or raw
+pairs, as the engine elects), the Python decoders, the PAF loaders, and
+the table writer. Alignment inputs are fed in
+``pandepth_tpu.run.run_alignment``'s order, every member of a ``.list``
+in the first file's contig space; PAF inputs as
+``pandepth_tpu.run.run_paf`` feeds them. Inputs and flags outside this
+slice exit non-zero with a message naming the ROADMAP.md item that
 ports it; the run is never handed to the JAX package.
 """
 
@@ -24,13 +28,14 @@ from pandepth_tpu.config import MODE_WIN_SMALL, RunConfig
 from pandepth_tpu.device.layout import GenomeLayout
 from pandepth_tpu.io.bam import BamHeader, ReadBatch
 from pandepth_tpu.io.fasta import load_ref_bases
+from pandepth_tpu.io.paf import iter_paf_events, paf_contig_table
 from pandepth_tpu.io.sam_text import SamReader
 from pandepth_tpu.run import (_cheap_header, _feed_stream,
                               _filter_batch_to_windows,
                               _finalize_and_write, _intervals_in_windows,
                               _prepare_targets, _RegionCursor,
                               _try_native_load, index_present, is_paf,
-                              open_alignment)
+                              open_alignment, paf_contigs_from_fasta)
 from pandepth_tpu.targets.model import TargetSet
 from pandepth_tpu.utils.log import RunStats, phase, set_verbose
 from pandepth_tpu_torch.device.engine import CoverageEngine
@@ -62,10 +67,6 @@ class Staged(NamedTuple):
 
 def unported(config: RunConfig) -> Optional[str]:
     """What of ``config`` this slice cannot run, or None."""
-    if len(config.inputs) > 1:
-        return "multi-file (.list) input (ROADMAP.md queue 1, item 4)"
-    if is_paf(config.inputs[0]):
-        return "PAF input (ROADMAP.md queue 1, item 4)"
     if config.site_output:
         return "-a (ROADMAP.md queue 1, item 3)"
     if 0 < config.win_size < 150:
@@ -113,17 +114,22 @@ def read_regions(config: RunConfig, mode: int, targets: TargetSet,
 
 
 def read_batches(path: str, config: RunConfig, regions=None,
-                 reader=None) -> Iterator[ReadBatch]:
+                 reader=None, n_targets: Optional[int] = None
+                 ) -> Iterator[ReadBatch]:
     """The columnar batches that the CIGAR feed hands to
     ``CoverageEngine.add_batch``: ``reader``'s (by default the Python
     decoder that ``open_alignment`` picks for ``path``), at most
     ``config.max_reads_per_batch`` reads each, with reads outside
-    ``regions`` marked tid = -1."""
+    ``regions`` marked tid = -1. A later member of a ``.list`` passes
+    ``n_targets``, the first file's contig count: its reads on a tid past
+    that are marked -1 too."""
     r = reader if reader is not None else open_alignment(
         path, threads=config.threads)
     cursor = _RegionCursor(regions) if regions is not None and \
         regions[3] == 2 else None
     for batch in r.batches(max_reads=config.max_reads_per_batch):
+        if n_targets is not None:
+            batch.tid[batch.tid >= n_targets] = -1
         if cursor is not None:
             cursor.filter_batch(batch, config.flags, config.min_mapq)
         elif regions is not None:
@@ -184,17 +190,22 @@ def _feed_cram_intervals(engine: CoverageEngine, r, path: str,
 
 
 def feed(engine: CoverageEngine, path: str, config: RunConfig,
-         names: List[str], regions, reader=None) -> None:
+         names: List[str], regions, reader=None, member: int = 0) -> None:
     """Every event of ``path`` into ``engine``, by the first feed that
-    takes it: the native stream, the native one-shot loader, native SAM
-    text, vectorised CRAM, then the Python decoders' batches into the
+    takes it: the native stream (encoded windows or raw pairs, as the
+    engine elects), the native one-shot loader, native SAM text,
+    vectorised CRAM, then the Python decoders' batches into the
     ``extract_events`` kernel. ``reader`` is the already open reader of
     a SAM or CRAM input; without one, ``path`` is a BAM, and unless
-    ``PANDEPTH_NO_NATIVE=1`` a native loader that fails raises."""
+    ``PANDEPTH_NO_NATIVE=1`` a native loader that fails raises.
+    ``member`` > 0 is a later file of a ``.list``, read in the first
+    file's contig space (the reference's quirk Q5)."""
+    later = {} if member == 0 else {"ext_offsets": engine.layout.offsets,
+                                    "ext_limits": engine.layout.limits}
     r = reader
     if r is None:
         if _native_wanted():
-            r = _try_native_load(path, config, regions=regions)
+            r = _try_native_load(path, config, regions=regions, **later)
             if r is None:
                 raise NativeFeedError(
                     f"libpancov_io's loader cannot read the BAM {path} "
@@ -221,20 +232,26 @@ def feed(engine: CoverageEngine, path: str, config: RunConfig,
     if hasattr(r, "interval_batches") and \
             _feed_cram_intervals(engine, r, path, config, regions):
         return
-    for batch in read_batches(path, config, regions, reader=r):
+    for batch in read_batches(path, config, regions, reader=r,
+                              n_targets=engine.layout.n_targets
+                              if member else None):
         engine.add_batch(batch)
 
 
 def prepare(config: RunConfig, device,
             stats: Optional[RunStats] = None) -> Staged:
-    """Read the header, prepare the targets and the read filter, and make
-    an empty engine on ``device`` for ``config.inputs[0]``. Raises
-    :class:`Unported` for inputs and flags outside this slice."""
+    """Read the header (of the first file of a ``.list``), prepare the
+    targets and the read filter, and make an empty engine on ``device``.
+    A PAF run's contig table comes from ``-r``'s FASTA or the first PAF
+    file. Raises :class:`Unported` for inputs and flags outside this
+    slice."""
     what = unported(config)
     if what is not None:
         raise Unported(what)
     if _native_wanted():
         _load_native()
+    if is_paf(config.inputs[0]):
+        return _prepare_paf(config, device, stats)
     path = config.inputs[0]
     header = _cheap_header(path)
     reader = None
@@ -253,8 +270,10 @@ def prepare(config: RunConfig, device,
     if mode == MODE_WIN_SMALL:
         raise Unported("-w below 150 (ROADMAP.md queue 1, item 3)")
     # the reference's 18-bit depth cells (quirk Q1), decided exactly as
-    # pandepth_tpu.run.run_alignment decides it for one input
-    wrap18 = not (index_present(path) and config.use_index)
+    # pandepth_tpu.run.run_alignment decides it: without a usable index,
+    # and in multi-file runs
+    wrap18 = not (index_present(path) and config.use_index) \
+        or len(config.inputs) > 1
     engine = CoverageEngine(GenomeLayout(lengths), flags_mask=config.flags,
                             min_mapq=config.min_mapq,
                             min_dep=config.min_depth, wrap18=wrap18,
@@ -264,14 +283,77 @@ def prepare(config: RunConfig, device,
                                header), reader)
 
 
+def _prepare_paf(config: RunConfig, device,
+                 stats: Optional[RunStats]) -> Staged:
+    """:func:`prepare` for PAF input, as ``pandepth_tpu.run.run_paf``:
+    ``-r`` alone gives the contig table and the GC columns; without it
+    the table is the first file's (the reference scans only that one)."""
+    ref_bases = None
+    if config.reference:
+        names, lengths, chr2tid, ref_bases = \
+            paf_contigs_from_fasta(config.reference)
+    else:
+        names, lengths = paf_contig_table(config.inputs[:1])
+        chr2tid = {n: i for i, n in enumerate(names)}
+    with phase(stats, "targets"):
+        mode, targets = _prepare_targets(config, names, lengths, chr2tid,
+                                         ref_bases)
+    if mode == MODE_WIN_SMALL:
+        raise Unported("-w below 150 (ROADMAP.md queue 1, item 3)")
+    engine = CoverageEngine(GenomeLayout(lengths), flags_mask=config.flags,
+                            min_mapq=config.min_mapq,
+                            min_dep=config.min_depth, wrap18=True,
+                            device=device)
+    return Staged(engine, mode, targets, names, lengths, ref_bases, None,
+                  None)
+
+
+def feed_paf(engine: CoverageEngine, path: str, config: RunConfig,
+             names: List[str]) -> None:
+    """A PAF file's aligned runs into ``engine``: libpancov_io's PAF
+    loader, or with ``PANDEPTH_NO_NATIVE=1`` the Python one."""
+    if not _native_wanted():
+        chr2tid = {n: i for i, n in enumerate(names)}
+        for tid, s, e in iter_paf_events(path, chr2tid, config.flags,
+                                         config.min_mapq):
+            engine.add_intervals(tid, s, e)
+        return
+    from pandepth_tpu.io.native import NativePafLoad
+
+    pl = NativePafLoad(path, config.flags, config.min_mapq, names,
+                       engine.layout.offsets, engine.layout.limits)
+    if engine.pos_bits32:
+        s32, e32 = pl.events32_padded(max(pl.n_events, 1),
+                                      engine.pos_sentinel32)
+        engine.add_padded_events(s32.view(engine.pos_dtype),
+                                 e32.view(engine.pos_dtype))
+    else:
+        engine.add_start_end(*pl.events64())
+    pl.close()
+
+
 def stage(config: RunConfig, device,
           stats: Optional[RunStats] = None) -> Staged:
-    """:func:`prepare`, then feed every event of ``config.inputs[0]`` into
+    """:func:`prepare`, then feed every event of every input file into
     the engine."""
     st = prepare(config, device, stats)
+    paf = is_paf(config.inputs[0])
     with phase(stats, "feed"):
-        feed(st.engine, config.inputs[0], config, st.names, st.regions,
-             st.reader)
+        for i, path in enumerate(config.inputs):
+            if paf:
+                feed_paf(st.engine, path, config, st.names)
+            elif i == 0:
+                feed(st.engine, path, config, st.names, st.regions,
+                     st.reader)
+            else:
+                header = _cheap_header(path)
+                reader = None
+                if header is None:  # SAM text or CRAM
+                    reader = open_alignment(path, threads=config.threads)
+                    header = getattr(reader, "header", None)
+                feed(st.engine, path, config, st.names,
+                     read_regions(config, st.mode, st.targets, st.lengths,
+                                  path, header), reader, member=i)
     return st
 
 
@@ -285,6 +367,10 @@ def run(config: RunConfig, device) -> int:
         print("Error: lack reference sequence (-r) for GC parse",
               file=sys.stderr)
         return 1
+    if len(config.inputs) > 1:
+        print("INFO: Run multi-file data ")
+    elif is_paf(config.inputs[0]):
+        print("INFO: Run paf Format data ")
     stats = RunStats()
     try:
         st = stage(config, device, stats)
@@ -299,6 +385,7 @@ def run(config: RunConfig, device) -> int:
     stats.reads_seen = st.engine.n_reads_seen
     with phase(stats, "stats+write"):
         _finalize_and_write(config, st.engine, st.mode, st.targets, st.names,
-                            st.lengths, config.gc, st.ref_bases, stats)
+                            st.lengths, st.ref_bases is not None,
+                            st.ref_bases, stats)
     stats.emit()
     return 0

@@ -1,6 +1,7 @@
-"""Seeded synthetic read batches for checking the CIGAR extraction
-(``extract_events``) against its twins: the port's tests and
-``chip_smoke.py`` build their batches here. numpy only.
+"""Seeded synthetic inputs for checking kernels against their twins:
+read batches for the CIGAR extraction (``extract_events``) and encoded
+event windows for their decode (``decode_enc``). The port's tests and
+``chip_smoke.py`` build theirs here. numpy only.
 """
 
 from __future__ import annotations
@@ -59,3 +60,90 @@ def jax_padded(b: ReadBatch) -> ReadBatch:
                      op_code=pad(b.op_code, mpd, 0),
                      op_len=pad(b.op_len, mpd, 0),
                      op_read=pad(b.op_read, mpd, n - 1))
+
+
+def _zigzag_encode(d: np.ndarray) -> np.ndarray:
+    return (d << 1) ^ (d >> 63)
+
+
+def enc_window(rng, code_dt, lo: int, hi: int, const: bool, n: int,
+               cap: int, ce: int):
+    """One encoded window of ``n`` live pairs in ``cap`` slots, as the
+    native stream's encoder lays it out: (dd, ll, excd, excl, base,
+    ulen). The base and four jumps lie in [lo, hi); starts step by small
+    deltas (direct codes, some negative) between the jumps (delta escapes
+    when they are far, negative ones included, which wrap the uint32
+    tier's arithmetic); a mixed window has three escaped lengths, a
+    const one the length ``ulen`` on every live pair."""
+    esc = int(np.iinfo(code_dt).max)
+    dd, ll = np.zeros(cap, code_dt), np.zeros(cap, code_dt)
+    excd, excl = np.zeros(ce, np.int64), np.zeros(ce, np.int64)
+    base = int(rng.randint(lo, hi))
+    if n == 0:
+        return dd, ll, excd, excl, base, 0
+    deltas = rng.randint(-40, 120, n).astype(np.int64)
+    jumps = np.sort(rng.choice(n, min(4, n), replace=False))
+    targets = rng.randint(lo, hi, jumps.shape[0])
+    for k, t in zip(jumps, targets):
+        deltas[k] = t - (base + deltas[:k].sum())
+    z = _zigzag_encode(deltas)
+    dd[:n] = np.where(z < esc, z, esc)
+    big = np.flatnonzero(z >= esc)
+    excd[:big.shape[0]] = deltas[big]
+    if const:
+        ulen = int(rng.randint(1, min(esc, 400)))
+        ll[:n] = ulen
+        return dd, ll, excd, excl, base, ulen
+    lens = rng.randint(0, 250, n).astype(np.int64)
+    lbig = np.sort(rng.choice(n, min(3, n), replace=False))
+    lens[lbig] = rng.randint(esc, esc + 5000, lbig.shape[0])
+    ll[:n] = np.minimum(lens, esc)
+    excl[:lbig.shape[0]] = lens[lbig]
+    return dd, ll, excd, excl, base, 0
+
+
+def enc_group(rng, code_dt, pos_dt, lo: int, hi: int, const: bool,
+              rows_per_block, cap: int, ce: int):
+    """One operand group of ``finalize_encoded`` as numpy arrays, in the
+    JAX package's layout: (codes, excs, slots, bases[, lens, ns]) with
+    one block per entry of ``rows_per_block``, its windows' bases and
+    jumps in [lo, hi); and its windows as (dd, ll, excd, excl, base, n).
+    Each block cycles through a zero row, a short row and a full row."""
+    codes, excs, slots, bases, lens, ns, wins = [], [], [], [], [], [], []
+    esc = int(np.iinfo(code_dt).max)
+    for b in rows_per_block:
+        c = np.zeros((b, cap) if const else (b, 2, cap), code_dt)
+        e = np.zeros((b, ce) if const else (b, 2, ce), np.int64)
+        s = np.full(e.shape, cap, np.int32)
+        for r in range(b):
+            n = [0, 7, cap][r % 3]
+            dd, ll, excd, excl, base, ulen = enc_window(rng, code_dt, lo, hi,
+                                                        const, n, cap, ce)
+            wins.append((dd, ll, excd, excl, base, n))
+            fd, fl = np.flatnonzero(dd == esc), np.flatnonzero(ll == esc)
+            if const:
+                c[r], e[r] = dd, excd
+                s[r, :fd.shape[0]] = fd
+                lens.append(ulen)
+                ns.append(n)
+            else:
+                c[r, 0], c[r, 1], e[r, 0], e[r, 1] = dd, ll, excd, excl
+                s[r, 0, :fd.shape[0]] = fd
+                s[r, 1, :fl.shape[0]] = fl
+            bases.append(base)
+        codes.append(c)
+        excs.append(e)
+        slots.append(s)
+    g = (tuple(codes), tuple(excs), tuple(slots),
+         np.array(bases, np.int64).astype(pos_dt))
+    if const:
+        g += (np.array(lens, np.int32), np.array(ns, np.int32))
+    return g, wins
+
+
+def enc_placeholder(code_dt, pos_dt, const: bool):
+    """The JAX engine's tiny depth-neutral block for an unused group."""
+    shape = (1, 1) if const else (1, 2, 1)
+    g = ((np.zeros(shape, code_dt),), (np.zeros(shape, np.int64),),
+         (np.ones(shape, np.int32),), np.zeros(1, pos_dt))
+    return g + (np.zeros(1, np.int32),) * 2 if const else g

@@ -165,12 +165,16 @@ def test_empty_engine():
 
 
 @pytest.mark.parametrize("tier", sorted(LAYOUTS))
-def test_engine_surface(tier):
-    """What the shared run helpers read; PANDEPTH_ENC (set by conftest)
-    does not turn on encoded windows."""
+def test_engine_surface(tier, monkeypatch):
+    """What the shared run helpers read; PANDEPTH_ENC elects encoded
+    windows as in the JAX engine, and the encoder's window sizes are the
+    JAX engine's."""
+    monkeypatch.setenv("PANDEPTH_ENC", "1")
     lay, port, ref = _engines(tier)
     assert port.wants_padded_events and port.jax_free
-    assert port.wants_encoded_windows is False
+    assert port.wants_encoded_windows is True is ref.wants_encoded_windows
+    assert (port.enc_cap, port.enc_exc, port.enc_block) == \
+        (ref.enc_cap, ref.enc_exc, ref.enc_block)
     assert port.pos_sentinel == ref.pos_sentinel
     assert port.pos_sentinel32 == ref.pos_sentinel32
     assert port.pos_bits32 == ref.pos_bits32
