@@ -4,7 +4,8 @@ NVIDIA GPU. Run it from the repository root, with no arguments:
 
     python3 chip_smoke.py
 
-Phases, one line each; any failure exits non-zero:
+(``chip_smoke.py worker ...`` is one rank of a path that phase 6 spawns;
+see :func:`worker`.) Phases, one line each; any failure exits non-zero:
 
 1. device   the card's name and power limit (nvidia-smi)
 2. build    nvcc build of pandepth_tpu_torch/csrc/sweep_kernels.cu
@@ -49,7 +50,11 @@ Phases, one line each; any failure exits non-zero:
             empty rows, a carry past int32, an event at the axis's end,
             segments across and inside ranges and of zero length, 1, 8
             and 4 + 4 rows in two blocks, with the whole segment_stats
-            against the twins' engine); the time of each beside its
+            against the twins' engine); bucket_events on the chr path's
+            events over 1, 2, 4 and 8 ranges (timed, with the library's
+            stable sort of the destinations beside it) and on every tier
+            with dead slots, a hot range, an event at the axis's end, 0
+            and 1 events and up to 1024 ranges; the time of each beside its
             twin's and its bound; the Python decoder's time per batch;
             the code groups and blocks of each encoded path; the bytes
             each feed copies to the card and the copies' time
@@ -95,16 +100,27 @@ Phases, one line each; any failure exits non-zero:
             cli_sharded the CLI as a user calls it (no device: every
                     visible card) with PANDEPTH_SHARDED=1, one row per
                     card; its table byte-equal to the same
+            multiproc the .list through pandepth_tpu_torch.sharding.launch
+                    on 2 gloo ranks sharing cuda:0, each a worker process
+                    (rank 0 decodes files 0 and 2, rank 1 file 1): every
+                    rank's launches, exchange seconds and bytes and
+                    RunStats; rank 0's table byte-equal to the list run's
+                    (and so to the host sweep's), none from rank 1
+            multiproc_nccl the chr fixture through the launcher on 1 NCCL
+                    rank; the table byte-equal to chr's
+            mesh_step sharded_coverage_step on the first batch's reads,
+                    split over 2 gloo ranks on cuda:0; both ranks' (cover,
+                    dsum) equal to the step path's
 7. profile  the cigar, bed, chr_enc, chr and chr_sharded runs once more
             under torch.profiler: host wall, device time (the sum of
             every op's self device time), the device's busy share, the
             host->device copies' time, the largest ops, the peak device
             memory; tables byte-equal to phase 6's
 
-Then one JSON line of kernel results, and last
-``{"ok": true, "device": {...}}``. This process imports nothing but
-torch and pandepth_tpu_torch; the fixtures and the host sweep run in
-subprocesses.
+Then the card's line once more, one JSON line of kernel results, and
+last ``{"ok": true, "device": {...}}``. This process and its workers
+import nothing but torch and pandepth_tpu_torch; the fixtures and the
+host sweep run in subprocesses.
 """
 
 from __future__ import annotations
@@ -127,8 +143,11 @@ REPLACES = {"pack_events": "pandepth_tpu/device/engine.py:43",
             "eval_boundaries": "pandepth_tpu/device/sweep.py:89",
             "decode_enc": "pandepth_tpu/device/sweep.py:205",
             "shard_carry": "pandepth_tpu/sharding/engine.py:81",
-            "eval_pair_rows": "pandepth_tpu/sharding/engine.py:73"}
-# what each main path must launch
+            "eval_pair_rows": "pandepth_tpu/sharding/engine.py:73",
+            "bucket_events": "pandepth_tpu/sharding/mesh.py:64"}
+# what each main path must launch (summed over the ranks of a path run by
+# spawned workers)
+MESH = ("bucket_events", "shard_carry", "sweep_scan", "eval_pair_rows")
 PATHS = {"chr": ("pack_events", "sweep_scan", "eval_pair"),
          "chr_enc": ("decode_enc", "sweep_scan", "eval_pair"),
          "cigar": ("extract_events", "sweep_scan", "eval_pair"),
@@ -139,11 +158,15 @@ PATHS = {"chr": ("pack_events", "sweep_scan", "eval_pair"),
          "unsorted": ("pack_events", "sweep_scan", "eval_pair"),
          "chr_sharded": ("shard_carry", "sweep_scan", "eval_pair_rows"),
          "bed_sharded": ("shard_carry", "sweep_scan", "eval_pair_rows"),
-         "cli_sharded": ("shard_carry", "sweep_scan", "eval_pair_rows")}
+         "cli_sharded": ("shard_carry", "sweep_scan", "eval_pair_rows"),
+         "multiproc": MESH, "multiproc_nccl": MESH,
+         "mesh_step": MESH + ("extract_events",)}
 N_READS = 8_000_000
 BATCH_READS = 1 << 20   # RunConfig.max_reads_per_batch
 N_BED = 200_000
 SHARD_ROWS = 8          # rows of the sharded runs on the one card
+RANGES = (1, 2, 4, 8)   # bucket_events' ranges on the chr path's events
+JOB_SECONDS = 300       # each spawned job's limit, all its ranks killed
 HBM_BYTES_PER_S = 3.35e12   # the H100 SXM's device memory rate
 SENTINEL = 1 << 62      # JAX's extract_events sentinel
 COLS = ("tid", "pos", "flag", "mapq", "op_code", "op_len", "op_read")
@@ -308,6 +331,7 @@ class KernelCheck:
         self.ms = {}
         self.plain_ms = {}
         self.bound_ms = {}
+        self.library_ms = {}
         self.notes = []
 
     def compare(self, name: str, got, want, what: str) -> None:
@@ -740,8 +764,8 @@ def shard_edge_cases(check: KernelCheck, dev) -> None:
 
 def sharded_states(check: KernelCheck, bam: str, bed: str, dev):
     """The 8-row blocks that the sharded engine stages for the chr path
-    (timed) and the bed path, through shard_case; returns a description
-    of each."""
+    (timed) and the bed path, through shard_case, and the chr path's
+    events through bucket_main_path; returns a description of each."""
     from pandepth_tpu_torch.cli import parse_args
     from pandepth_tpu_torch.run import stage
 
@@ -758,8 +782,109 @@ def sharded_states(check: KernelCheck, bam: str, bed: str, dev):
         rows, width = shard_case(check, eng, lo, hi, what,
                                  timed=path == "chr_sharded")
         shapes[path] = f"{what[:-1]}, {rows} rows x {width} slots)"
+        if path == "chr_sharded":
+            shapes["bucket_events"] = bucket_main_path(check, eng, dev)
         del st, eng
     return shapes
+
+
+def bucket_case(check: KernelCheck, pos, delta, bounds, tier: int,
+                what: str) -> None:
+    """bucket_events and its twin on one input: the first sum(counts)
+    slots of both buffers (the rest is undefined in the kernel's), the
+    counts and the sums."""
+    from pandepth_tpu_torch.device import kernels
+    from pandepth_tpu_torch.sharding import mesh
+
+    got = kernels.bucket_events(pos, delta, bounds, tier)
+    want = mesh.bucket_events_reference(pos, delta, bounds, tier)
+    n = int(want[2].sum())
+    check.compare("bucket_events", (got[0][:n], got[1][:n], *got[2:]),
+                  (want[0][:n], want[1][:n], *want[2:]), what)
+
+
+def bucket_edge_cases(check: KernelCheck, dev) -> None:
+    """bucket_events on every position tier, over 1, 2, 3, 8 and 1024
+    ranges: 0, 1, 5,000 and 1,000,003 events (a third of them in
+    coordinate order, deltas -1, 0, 1, 5, dead slots at the sentinel too)
+    and a hot range (every event in range 0 but one at the axis's end)."""
+    import numpy as np
+    import torch
+
+    from pandepth_tpu_torch.device.kernels import TIER_I32, TIER_I64, TIER_U32
+
+    rng = np.random.RandomState(21)
+    for tier, np_dt, span in ((TIER_I32, np.int32, 2_000_000_000),
+                              (TIER_U32, np.uint32, 4_200_000_000),
+                              (TIER_I64, np.int64, 17_000_000_000)):
+        sentinel = int(np.iinfo(np_dt).max)
+        for world in (1, 2, 3, 8, 1024):
+            step = -(-span // world)
+            bounds = torch.from_numpy(np.minimum(
+                np.arange(world + 1, dtype=np.int64) * step, span)).to(dev)
+            for n, hot in ((0, False), (1, False), (5000, False),
+                           (1_000_003, False), (5000, True)):
+                p = rng.randint(0, 100 if hot else span, n).astype(np.int64)
+                if hot:
+                    p[-1] = span
+                elif n > 10:
+                    p[:n // 3] = np.sort(p[:n // 3])
+                d = rng.choice([-1, 0, 1, 5], n).astype(np.int32)
+                p[(d == 0) & (rng.rand(n) < 0.5)] = sentinel
+                w = p.astype(np_dt)
+                if np_dt is np.uint32:
+                    w = w.view(np.int32)
+                bucket_case(check, torch.from_numpy(w).to(dev),
+                            torch.from_numpy(d).to(dev), bounds, tier,
+                            f"{np.dtype(np_dt).name} tier, {world} ranges, "
+                            f"{n} events, hot={hot}")
+
+
+def bucket_main_path(check: KernelCheck, eng, dev) -> str:
+    """bucket_events on the chr path's events as a rank of the
+    multi-process engine uploads them (every chunk the feed left, in the
+    tier's words), over RANGES ranges, against its twin; timed at 2
+    ranges (the multiproc path's world) for the kernels line and at the
+    others for notes, with the library's stable sort of the destinations
+    (the order alone) beside it. Returns a description of the shape."""
+    import numpy as np
+    import torch
+
+    from pandepth_tpu_torch.device import kernels
+    from pandepth_tpu_torch.device.kernels import TIER_I32, TIER_I64, TIER_U32
+    from pandepth_tpu_torch.sharding import mesh
+
+    pos = np.concatenate([c[0] for c in eng._chunks])
+    delta = np.concatenate([c[1] for c in eng._chunks])
+    tier = {np.int32: TIER_I32, np.uint32: TIER_U32,
+            np.int64: TIER_I64}[eng.pos_dtype]
+    if eng.pos_dtype is np.uint32:
+        pos = pos.view(np.int32)
+    pw, dw = torch.from_numpy(pos).to(dev), torch.from_numpy(delta).to(dev)
+    n = pos.shape[0]
+    what = f"chr path ({n} events, {eng.pos_dtype.__name__} tier)"
+    for world in RANGES:
+        bounds = torch.from_numpy(eng.layout.shard_bounds(world)).to(dev)
+        bucket_case(check, pw, dw, bounds, tier, f"{what}, {world} ranges")
+        key = pw.to(torch.int64)
+        if tier == TIER_U32:
+            key &= 0xFFFFFFFF
+        dest = torch.searchsorted(bounds[1:-1].contiguous(), key,
+                                  right=True).clamp_(max=world - 1)
+        sort_ms = cuda_ms(lambda: torch.sort(dest, stable=True))
+        note = "" if world == 2 else f"{what}, {world} ranges"
+        check.time("bucket_events",
+                   lambda: kernels.bucket_events(pw, dw, bounds, tier),
+                   lambda: mesh.bucket_events_reference(pw, dw, bounds,
+                                                        tier),
+                   2 * n * (pos.itemsize + 4), note)
+        if note:
+            check.notes.append(f"library stable sort of the {n} "
+                               f"destinations ({world} ranges; the order "
+                               f"alone): {sort_ms:.4f} ms")
+        else:
+            check.library_ms["bucket_events"] = sort_ms
+    return f"{what}, 2 ranges)"
 
 
 def main_path_states(check: KernelCheck, bam: str, bed: str, lst: str,
@@ -963,6 +1088,137 @@ def counted(kernels, path: str, fn):
     return out, runs, wall
 
 
+def worker(argv) -> int:
+    """One rank of a spawned path: ``chip_smoke.py worker MODE WORLD RANK
+    BACKEND DEVICE STORE ARGS...``. MODE ``cli`` runs
+    ``pandepth_tpu_torch.sharding.launch`` on the pandepth flags ARGS;
+    ``step`` runs ``sharded_coverage_step`` on this rank's half of the
+    batch in the .npz ARGS[0] and writes its (cover, dsum) beside it.
+    ``{rank}`` in ARGS is replaced by the rank.
+    Every kernel count is set to 0 just before the run. Prints one line,
+    ``RANK`` and a JSON object: the exit code, the wall, the launches, and
+    the seconds and bytes of each exchange (``mesh.bucket_exchange``:
+    bucketing and collectives, synchronised)."""
+    import numpy as np
+    import torch
+
+    from pandepth_tpu_torch.device import kernels
+    from pandepth_tpu_torch.sharding import mesh
+
+    mode, world, rank, backend, device, store = argv[:6]
+    world, rank = int(world), int(rank)
+    rest = [a.replace("{rank}", str(rank)) for a in argv[6:]]
+    if device.startswith("cuda"):
+        kernels.library()   # loaded (built by the parent) before the run
+    seconds, nbytes = [], []
+    real = mesh.bucket_exchange
+
+    def exchange(*a, **kw):
+        t0 = time.perf_counter()
+        ex = real(*a, **kw)
+        if ex.pos.is_cuda:
+            torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+        nbytes.append(ex.nbytes)
+        return ex
+
+    mesh.bucket_exchange = exchange
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    if mode == "cli":
+        from pandepth_tpu_torch.sharding.launch import main as launch
+
+        rc = launch(["launch", "--coordinator", store, "--nprocs", str(world),
+                     "--rank", str(rank), "--backend", backend, "--device",
+                     device, *rest])
+    else:
+        import torch.distributed as dist
+
+        from pandepth_tpu_torch.sharding.distributed import init_multihost
+
+        dev = init_multihost(store, world, rank, backend, device)
+        x = np.load(rest[0])
+        cols = [torch.from_numpy(x[f"{c}{rank}"]).to(dev) for c in COLS]
+        rep = [torch.from_numpy(x[k]).to(dev)
+               for k in ("offsets", "limits", "bounds", "lo", "hi")]
+        step = mesh.sharded_coverage_step(None, int(x["flags_mask"]),
+                                          int(x["min_mapq"]), 1)
+        cover, dsum = step(*cols, *rep)
+        np.savez(f"{rest[0]}.out{rank}.npz", cover=cover.cpu().numpy(),
+                 dsum=dsum.cpu().numpy())
+        dist.barrier()
+        dist.destroy_process_group()
+        rc = 0
+    wall = time.perf_counter() - t0
+    print("RANK " + json.dumps({
+        "rank": rank, "rc": rc, "wall": wall, "launches": kernels.launches,
+        "exchange_s": seconds, "exchange_bytes": nbytes}), flush=True)
+    return rc
+
+
+def spawned(path: str, mode: str, world: int, backend: str, args,
+            tmp: str, device: str = "cuda:0"):
+    """``path`` run by ``world`` worker processes (:func:`worker`) on
+    ``device``, joined through a file store in ``tmp``; all are killed and the
+    phase fails when one fails or the job passes JOB_SECONDS. Fails unless
+    the ranks together launched every kernel of the path. Returns (each
+    rank's RANK object, each rank's RunStats line or None, the launches
+    summed over the ranks, the job's wall)."""
+    logs = [os.path.join(tmp, f"{path}.r{r}.{k}") for r in range(world)
+            for k in ("out", "err")]
+    envs = dict(os.environ, GLOO_SOCKET_IFNAME="lo")
+    store = "file://" + os.path.join(tmp, f"{path}.store")
+    procs = []
+    t0 = time.perf_counter()
+    for r in range(world):
+        with open(logs[2 * r], "w") as out, open(logs[2 * r + 1], "w") as err:
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "worker", mode,
+                 str(world), str(r), backend, device, store, *args],
+                cwd=ROOT, env=envs, stdout=out, stderr=err))
+    while any(p.poll() is None for p in procs):
+        bad = [r for r, p in enumerate(procs) if p.poll() not in (None, 0)]
+        late = time.perf_counter() - t0 > JOB_SECONDS
+        if bad or late:
+            for p in procs:
+                p.kill()
+                p.wait()
+            why = f"rank {bad[0]} exited {procs[bad[0]].returncode}" if bad \
+                else f"passed {JOB_SECONDS} s"
+            with open(logs[2 * bad[0] + 1 if bad else 1]) as fh:
+                fail("e2e", f"{path}: {why}: {fh.read()[-3000:]}")
+        time.sleep(0.1)
+    wall = time.perf_counter() - t0
+    ranks, stats = [], []
+    for r, p in enumerate(procs):
+        with open(logs[2 * r]) as fh:
+            got = [ln[5:] for ln in fh.read().splitlines()
+                   if ln.startswith("RANK ")]
+        with open(logs[2 * r + 1]) as fh:
+            err = fh.read()
+        if p.returncode != 0 or len(got) != 1:
+            fail("e2e", f"{path}: rank {r} exited {p.returncode}: "
+                        f"{err[-3000:]}")
+        ranks.append(json.loads(got[0]))
+        walls = [ln for ln in err.splitlines() if ln.startswith("INFO: wall=")]
+        stats.append(walls[-1][6:] if walls else None)
+    runs = {k: sum(x["launches"][k] for x in ranks) for k in REPLACES}
+    missing = [k for k in PATHS[path] if runs[k] < 1]
+    if missing:
+        fail("e2e", f"{path}: {missing} not launched on the path: {runs}")
+    return ranks, stats, runs, wall
+
+
+def rank_lines(ranks, stats) -> str:
+    """Each rank's wall, exchanges and launches, for a say() line."""
+    return "; ".join(
+        f"rank {x['rank']}: {x['wall']:.3f} s in the worker (exchange "
+        f"{', '.join(f'{s:.4f}' for s in x['exchange_s'])} s, "
+        f"{', '.join(str(b) for b in x['exchange_bytes'])} bytes), "
+        f"launches { {k: v for k, v in x['launches'].items() if v} }"
+        + (f", RunStats {st}" if st else "") for x, st in zip(ranks, stats))
+
+
 def profiled(fn):
     """``fn`` once under torch.profiler. Returns (host wall s, device ms:
     the sum of the device's kernels and copies, the host->device copies'
@@ -1036,6 +1292,8 @@ def host_sweep(args, out: str):
 
 
 def main() -> int:
+    if sys.argv[1:2] == ["worker"]:
+        return worker(sys.argv[2:])
     import torch
 
     if not torch.cuda.is_available():
@@ -1094,6 +1352,7 @@ def main() -> int:
         extract_edge_cases(check, dev)
         enc_edge_cases(check, dev)
         shard_edge_cases(check, dev)
+        bucket_edge_cases(check, dev)
         states, h2d = main_path_states(check, bam, bed, lst, uns, dev)
         states.update(sharded_states(check, bam, bed, dev))
         t0 = time.perf_counter()
@@ -1115,11 +1374,14 @@ def main() -> int:
         shapes["decode_enc"] = states["chr_enc"]
         shapes["shard_carry"] = shapes["eval_pair_rows"] = \
             states["chr_sharded"]
+        shapes["bucket_events"] = states.pop("bucket_events")
         for k in REPLACES:
             say("kernels", f"{k}: {check.cases[k]} cases array-equal to "
                            f"the twin; {shapes[k]} {check.ms[k]:.4f} ms, "
                            f"twin {check.plain_ms[k]:.4f} ms, bound "
-                           f"{check.bound_ms[k]:.6f} ms")
+                           f"{check.bound_ms[k]:.6f} ms"
+                           + (f", library {check.library_ms[k]:.4f} ms"
+                              if k in check.library_ms else ""))
         say("kernels", f"also array-equal at {states['bed']}, "
                        f"{states['cigar']}, {states['list']}, "
                        f"{states['unsorted']} and {states['bed_sharded']}")
@@ -1319,6 +1581,63 @@ def main() -> int:
                        f"byte-equal to the single-device run's and the host "
                        f"sweep's")
 
+        # the multi-process engine: the .list on 2 gloo ranks sharing the
+        # card (rank 0 decodes files 0 and 2, rank 1 file 1), then the chr
+        # fixture on 1 NCCL rank; each rank a worker process
+        for path, world, backend, inp, want in (
+                ("multiproc", 2, "gloo", lst, list_tab),
+                ("multiproc_nccl", 1, "nccl", bam, port_tab)):
+            out = os.path.join(tmp, path)
+            ranks, stats, paths[path], wall = spawned(
+                path, "cli", world, backend,
+                ["-i", inp, "-o", out + "_r{rank}", "-v"], tmp)
+            if table(f"{out}_r0") != want:
+                fail("e2e", f"{path}: rank 0's table differs from the "
+                            f"single-process run's")
+            if any(os.path.exists(f"{out}_r{r}.chr.stat.gz")
+                   for r in range(1, world)):
+                fail("e2e", f"{path}: a rank other than 0 wrote a table")
+            say("e2e", f"{path} ({world} {backend} rank(s) on cuda:0): job "
+                       f"{wall:.3f} s; {rank_lines(ranks, stats)}; launches "
+                       f"{paths[path]}; rank 0's chr table byte-equal to the "
+                       f"single-process run's and the host sweep's")
+
+        # sharded_coverage_step on the first batch, its reads split over 2
+        # gloo ranks sharing the card, against coverage_step's sums
+        import numpy as np
+
+        from pandepth_tpu_torch.device.layout import GenomeLayout
+
+        host = [c.cpu().numpy() for c in fb.cols]
+        half = fb.n // 2
+        parts = {}
+        for r, rows in enumerate((slice(0, half), slice(half, fb.n))):
+            ops = (host[6] >= rows.start) & (host[6] < rows.stop)
+            parts.update({f"{c}{r}": a[rows] for c, a in
+                          zip(COLS[:4], host[:4])})
+            parts.update({f"{c}{r}": a[ops] for c, a in
+                          zip(COLS[4:6], host[4:6])})
+            parts[f"op_read{r}"] = host[6][ops] - rows.start
+        step_in = os.path.join(tmp, "mesh_step.npz")
+        np.savez(step_in, offsets=fb.offsets.cpu().numpy(),
+                 limits=fb.limits.cpu().numpy(),
+                 bounds=GenomeLayout(fb.lengths).shard_bounds(2),
+                 lo=fb.lo.cpu().numpy(), hi=fb.hi.cpu().numpy(),
+                 flags_mask=fb.flags_mask, min_mapq=fb.min_mapq, **parts)
+        ranks, stats, paths["mesh_step"], wall = spawned(
+            "mesh_step", "step", 2, "gloo", [step_in], tmp)
+        for r in range(2):
+            got = np.load(f"{step_in}.out{r}.npz")
+            if not (np.array_equal(got["cover"], cov.numpy())
+                    and np.array_equal(got["dsum"], dsum.numpy())):
+                fail("e2e", f"mesh_step: rank {r}'s sums differ from "
+                            f"coverage_step's")
+        say("e2e", f"mesh_step (the first batch's {fb.n} reads over 2 gloo "
+                   f"ranks on cuda:0): job {wall:.3f} s; "
+                   f"{rank_lines(ranks, stats)}; launches "
+                   f"{paths['mesh_step']}; both ranks' (cover, dsum) equal "
+                   f"to coverage_step's")
+
         # 7. profile: the cigar, bed and both chr runs once more, traced
         with no_native():
             prof = {"cigar": profiled(lambda: cli("cigarprof"))}
@@ -1343,14 +1662,18 @@ def main() -> int:
     if "jax" in sys.modules:
         fail("imports", "jax was imported")
     say("done", f"{time.perf_counter() - t_start:.1f} s")
-    # no single PyTorch call computes any of these kernels' functions
+    print(card, flush=True)   # again, beside the results
+    # no single PyTorch call computes the other kernels' functions;
+    # bucket_events' is the library's stable sort of the destinations,
+    # which computes the order alone
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": SOURCE,
          "replaces": REPLACES[k],
          "launches": sum(p[k] for p in paths.values()),
          "max_abs_err": check.err[k], "ms": check.ms[k],
          "plain_ms": check.plain_ms[k], "bound_ms": check.bound_ms[k],
-         "bound_by": "bytes", "library_ms": None} for k in REPLACES]}),
+         "bound_by": "bytes", "library_ms": check.library_ms.get(k)}
+        for k in REPLACES]}),
         flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

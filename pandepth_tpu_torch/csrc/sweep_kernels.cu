@@ -777,6 +777,188 @@ __global__ void eval_pair_rows_kernel(const P* __restrict__ pos,
     dsum[i] = (int64_t)sum;
 }
 
+// ---------------------------------------------------------------------
+// K10 bucket_events — replaces the bucketing of
+// pandepth_tpu/sharding/mesh.py:_bucket_exchange: its searchsorted of
+// bounds[1:-1], its segment_sum of the deltas by destination, and its
+// sort_key_val by destination with the scatter into the send rows.
+// A stable counting sort of the live events (delta != 0) by destination
+// range: the r with bounds[r] <= pos < bounds[r + 1], found by a binary
+// search of the world - 1 inner cuts held in shared memory (positions
+// compared as int64, the uint32 tier's words zero-extended) and so
+// clipped to world - 1. Dead events go nowhere. Bound on the H100:
+// memory. It reads each event's position word and delta twice and writes
+// them once; the bound counts one read (16 B per event in the 32-bit
+// tiers).
+//   1. per tile of BUCKET_TILE events: each destination's count, written
+//      destination-major as cnt[d * ntiles + tile], and added with the
+//      destination's delta sum into counts[d] / sums[d]
+//      (bucket_count_kernel; each thread accumulates a run of one
+//      destination and flushes it to shared memory when the destination
+//      changes, so a coordinate-sorted feed costs few atomics)
+//   2. one-block exclusive scan of cnt: the first output slot of each
+//      (destination, tile)                 (exclusive_scan_one_block)
+//   3. per tile again: each warp counts the destinations of its own
+//      contiguous sub-chunk, the warps' counts are scanned per
+//      destination from the tile's slot, then each warp walks its
+//      sub-chunk 32 events at a time, ranking the lanes of one
+//      destination with __match_any_sync (bucket_scatter_kernel).
+// The output is ordered by destination, then tile, warp, round and lane:
+// input order within a destination, the stable order of JAX's
+// sort_key_val that array-equal sweep state needs.
+
+constexpr int BUCKET_THREADS = 256;
+constexpr int BUCKET_WARPS = BUCKET_THREADS / 32;
+constexpr int BUCKET_ROUNDS = 16;                       // per warp
+constexpr int BUCKET_SUB = 32 * BUCKET_ROUNDS;          // events per warp
+constexpr int BUCKET_TILE = BUCKET_WARPS * BUCKET_SUB;  // events per block
+constexpr int BUCKET_MAX_WORLD = 1024;
+
+// searchsorted(cuts, x, side="right"): the number of cuts <= x
+__device__ __forceinline__ int find_dest(const int64_t* cuts, int ncuts,
+                                         int64_t x) {
+    int lo = 0, hi = ncuts;
+    while (lo < hi) {
+        const int mid = (lo + hi) >> 1;
+        if (cuts[mid] <= x) lo = mid + 1;
+        else hi = mid;
+    }
+    return lo;
+}
+
+template <typename W>
+__global__ void bucket_count_kernel(const W* __restrict__ pos,
+                                    const int32_t* __restrict__ delta,
+                                    int64_t n,
+                                    const int64_t* __restrict__ bounds,
+                                    int world, int64_t ntiles,
+                                    uint32_t* __restrict__ cnt,
+                                    uint32_t* __restrict__ counts,
+                                    u64* __restrict__ sums) {
+    __shared__ int64_t cuts[BUCKET_MAX_WORLD];
+    __shared__ uint32_t hist[BUCKET_MAX_WORLD];
+    __shared__ u64 hsum[BUCKET_MAX_WORLD];
+    for (int d = threadIdx.x; d < world; d += blockDim.x) {
+        if (d < world - 1) cuts[d] = bounds[d + 1];
+        hist[d] = 0;
+        hsum[d] = 0;
+    }
+    __syncthreads();
+    const int64_t base = (int64_t)blockIdx.x * BUCKET_TILE;
+    int cur = 0;
+    uint32_t run = 0;
+    u64 run_sum = 0;
+    for (int k = 0; k < BUCKET_TILE / BUCKET_THREADS; ++k) {
+        const int64_t i = base + (int64_t)k * BUCKET_THREADS + threadIdx.x;
+        if (i >= n) break;
+        const int32_t dl = delta[i];
+        if (dl == 0) continue;
+        const int d = find_dest(cuts, world - 1, (int64_t)pos[i]);
+        if (d != cur && run) {
+            atomicAdd(&hist[cur], run);
+            atomicAdd(&hsum[cur], run_sum);
+            run = 0;
+            run_sum = 0;
+        }
+        cur = d;
+        ++run;
+        run_sum += (u64)(int64_t)dl;
+    }
+    if (run) {
+        atomicAdd(&hist[cur], run);
+        atomicAdd(&hsum[cur], run_sum);
+    }
+    __syncthreads();
+    for (int d = threadIdx.x; d < world; d += blockDim.x) {
+        const uint32_t c = hist[d];
+        cnt[(int64_t)d * ntiles + blockIdx.x] = c;
+        if (c) {
+            atomicAdd(&counts[d], c);
+            atomicAdd(&sums[d], hsum[d]);
+        }
+    }
+}
+
+template <typename W>
+__global__ void bucket_scatter_kernel(const W* __restrict__ pos,
+                                      const int32_t* __restrict__ delta,
+                                      int64_t n,
+                                      const int64_t* __restrict__ bounds,
+                                      int world, int64_t ntiles,
+                                      const uint32_t* __restrict__ cnt,
+                                      W* __restrict__ out_pos,
+                                      int32_t* __restrict__ out_delta) {
+    __shared__ int64_t cuts[BUCKET_MAX_WORLD];
+    __shared__ uint32_t slot[BUCKET_WARPS * BUCKET_MAX_WORLD];
+    const int lane = threadIdx.x & 31;
+    const int warp = threadIdx.x >> 5;
+    for (int d = threadIdx.x; d < world - 1; d += blockDim.x)
+        cuts[d] = bounds[d + 1];
+    for (int j = threadIdx.x; j < BUCKET_WARPS * world; j += blockDim.x)
+        slot[j] = 0;
+    __syncthreads();
+    const int64_t sub =
+        (int64_t)blockIdx.x * BUCKET_TILE + (int64_t)warp * BUCKET_SUB;
+    uint32_t* mine = slot + warp * world;
+    int dest[BUCKET_ROUNDS];  // world: dead or past the end
+#pragma unroll
+    for (int r = 0; r < BUCKET_ROUNDS; ++r) {
+        const int64_t i = sub + r * 32 + lane;
+        int d = world;
+        if (i < n && delta[i] != 0)
+            d = find_dest(cuts, world - 1, (int64_t)pos[i]);
+        dest[r] = d;
+        const unsigned int peers = __match_any_sync(0xffffffffu, d);
+        if (d < world && lane == __ffs(peers) - 1) mine[d] += __popc(peers);
+        __syncwarp();
+    }
+    __syncthreads();
+    // each warp's first slot per destination: the tile's slot, then the
+    // counts of the earlier warps
+    for (int d = threadIdx.x; d < world; d += blockDim.x) {
+        uint32_t at = cnt[(int64_t)d * ntiles + blockIdx.x];
+        for (int w = 0; w < BUCKET_WARPS; ++w) {
+            const uint32_t c = slot[w * world + d];
+            slot[w * world + d] = at;
+            at += c;
+        }
+    }
+    __syncthreads();
+    const unsigned int below = (1u << lane) - 1u;
+#pragma unroll
+    for (int r = 0; r < BUCKET_ROUNDS; ++r) {
+        const int d = dest[r];
+        const unsigned int peers = __match_any_sync(0xffffffffu, d);
+        if (d < world) {
+            const uint32_t at = mine[d] + __popc(peers & below);
+            const int64_t i = sub + r * 32 + lane;
+            out_pos[at] = pos[i];
+            out_delta[at] = delta[i];
+        }
+        __syncwarp();
+        if (d < world && lane == __ffs(peers) - 1) mine[d] += __popc(peers);
+        __syncwarp();
+    }
+}
+
+template <typename W>
+int bucket_events_typed(const W* pos, const int32_t* delta, int64_t n,
+                        const int64_t* bounds, int world, W* out_pos,
+                        int32_t* out_delta, uint32_t* counts, u64* sums,
+                        uint32_t* cnt, cudaStream_t st) {
+    cudaMemsetAsync(counts, 0, sizeof(uint32_t) * world, st);
+    cudaMemsetAsync(sums, 0, sizeof(u64) * world, st);
+    if (n <= 0) return (int)cudaGetLastError();
+    const int64_t ntiles = (n + BUCKET_TILE - 1) / BUCKET_TILE;
+    bucket_count_kernel<W><<<(unsigned int)ntiles, BUCKET_THREADS, 0, st>>>(
+        pos, delta, n, bounds, world, ntiles, cnt, counts, sums);
+    exclusive_scan_one_block<uint32_t><<<1, TOTALS_THREADS, 0, st>>>(
+        cnt, ntiles * world);
+    bucket_scatter_kernel<W><<<(unsigned int)ntiles, BUCKET_THREADS, 0, st>>>(
+        pos, delta, n, bounds, world, ntiles, cnt, out_pos, out_delta);
+    return (int)cudaGetLastError();
+}
+
 inline unsigned int point_blocks(int64_t n) {
     const int64_t b = (n + POINT_THREADS - 1) / POINT_THREADS;
     return (unsigned int)(b < (1 << 20) ? b : (1 << 20));
@@ -1041,6 +1223,44 @@ int pdt_eval_pair_rows(int device, int pos64, const void* pos,
             (const int32_t*)pos, depth, c_cov, c_sum, rows, width, bounds,
             min_dep, lo, hi, b, cover, dsum);
     return (int)cudaGetLastError();
+}
+
+// Events per tile of bucket_events and the most ranges it takes; the
+// wrapper sizes its scratch as world * ceil(n / pdt_bucket_tile())
+// uint32 words.
+int64_t pdt_bucket_tile(void) { return BUCKET_TILE; }
+int64_t pdt_bucket_max_world(void) { return BUCKET_MAX_WORLD; }
+
+// K10's bucketing of n events: pos in the tier's words (int32, uint32
+// bit patterns, or int64), int32 deltas, bounds the world + 1 int64
+// range cuts. Writes the live events ordered by destination range,
+// stable, to the first sum(counts) slots of out_pos / out_delta, and
+// each destination's live count (int32) and delta sum (int64).
+int pdt_bucket_events(int device, int tier, const void* pos,
+                      const int32_t* delta, int64_t n,
+                      const int64_t* bounds, int world, void* out_pos,
+                      int32_t* out_delta, int32_t* counts, int64_t* sums,
+                      uint32_t* scratch, void* stream) {
+    cudaError_t err = cudaSetDevice(device);
+    if (err != cudaSuccess) return (int)err;
+    if (world < 1 || world > BUCKET_MAX_WORLD || n < 0 || n > INT32_MAX)
+        return (int)cudaErrorInvalidValue;
+    cudaStream_t st = (cudaStream_t)stream;
+    uint32_t* c = reinterpret_cast<uint32_t*>(counts);
+    u64* s = reinterpret_cast<u64*>(sums);
+    if (tier == TIER_I32)
+        return bucket_events_typed<int32_t>(
+            (const int32_t*)pos, delta, n, bounds, world, (int32_t*)out_pos,
+            out_delta, c, s, scratch, st);
+    if (tier == TIER_U32)
+        return bucket_events_typed<uint32_t>(
+            (const uint32_t*)pos, delta, n, bounds, world,
+            (uint32_t*)out_pos, out_delta, c, s, scratch, st);
+    if (tier == TIER_I64)
+        return bucket_events_typed<int64_t>(
+            (const int64_t*)pos, delta, n, bounds, world, (int64_t*)out_pos,
+            out_delta, c, s, scratch, st);
+    return (int)cudaErrorInvalidValue;
 }
 
 }  // extern "C"

@@ -62,9 +62,6 @@ class CoverageEngine:
 
     # the native loaders hand over sentinel-padded pos_dtype arrays
     wants_padded_events = True
-    # the JAX package's run helpers (_is_writer_rank) read it: handed
-    # this engine, they never start jax
-    jax_free = True
     #: when set, each host->device copy is synchronised and its seconds
     #: added to ``h2d_seconds`` (CUDA devices only)
     time_copies = False

@@ -38,7 +38,8 @@ TIER_I32, TIER_U32, TIER_I64 = 0, 1, 2
 launches: Dict[str, int] = {"pack_events": 0, "sweep_scan": 0,
                             "eval_pair": 0, "extract_events": 0,
                             "eval_boundaries": 0, "decode_enc": 0,
-                            "shard_carry": 0, "eval_pair_rows": 0}
+                            "shard_carry": 0, "eval_pair_rows": 0,
+                            "bucket_events": 0}
 #: ptxas's register / shared-memory report from the last build
 build_log: str = ""
 
@@ -128,6 +129,13 @@ def library() -> ctypes.CDLL:
         lib.pdt_eval_pair_rows.argtypes = [ctypes.c_int, ctypes.c_int, vp,
                                            vp, vp, vp, i64, i64, vp, i32,
                                            vp, vp, i64, vp, vp, vp]
+        for name in ("pdt_bucket_tile", "pdt_bucket_max_world"):
+            getattr(lib, name).restype = i64
+            getattr(lib, name).argtypes = []
+        lib.pdt_bucket_events.restype = ctypes.c_int
+        lib.pdt_bucket_events.argtypes = [ctypes.c_int, ctypes.c_int, vp, vp,
+                                          i64, vp, ctypes.c_int, vp, vp, vp,
+                                          vp, vp, vp]
         _lib = lib
         return lib
 
@@ -484,3 +492,42 @@ def eval_pair_rows(pos_s2: torch.Tensor, depth2: torch.Tensor,
             _p(hi), b, _p(cover), _p(dsum), _stream(pos_s2)))
         launches["eval_pair_rows"] += 1
     return cover, dsum
+
+
+def bucket_events(pos: torch.Tensor, delta: torch.Tensor,
+                  bounds: torch.Tensor, tier: int
+                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                             torch.Tensor]:
+    """K10's bucketing: the live events (delta != 0) of ``pos``/``delta``
+    ordered by destination range, stable, where range r is
+    [bounds[r], bounds[r + 1]) and positions past the last cut go to the
+    last range. ``pos`` holds the tier's words (int32 for both 32-bit
+    tiers, the uint32 tier's as bit patterns compared unsigned; int64),
+    ``bounds`` the (world + 1,) int64 cuts. Returns (out_pos, out_delta)
+    of the input's length, of which the first sum(counts) slots are
+    defined, and each range's live count (int32) and delta sum (int64)."""
+    word = torch.int64 if tier == TIER_I64 else torch.int32
+    _require("bucket_events", pos, word)
+    _require("bucket_events", delta, torch.int32)
+    _require("bucket_events", bounds, torch.int64)
+    _one_device("bucket_events", pos, delta, bounds)
+    n, world = pos.shape[0], bounds.shape[0] - 1
+    lib = library()
+    if delta.shape != pos.shape or n > (1 << 31) - 1 \
+            or not 1 <= world <= lib.pdt_bucket_max_world():
+        raise ValueError(f"bucket_events: {n} events, {delta.shape[0]} "
+                         f"deltas, {world} ranges")
+    dev = pos.device
+    out_pos, out_delta = torch.empty_like(pos), torch.empty_like(delta)
+    counts = torch.empty(world, dtype=torch.int32, device=dev)
+    sums = torch.empty(world, dtype=torch.int64, device=dev)
+    ntiles = -(-n // lib.pdt_bucket_tile())
+    scratch = torch.empty(max(world * ntiles, 1), dtype=torch.int32,
+                          device=dev)
+    _check("bucket_events", lib.pdt_bucket_events(
+        pos.get_device(), tier, _p(pos), _p(delta), n, _p(bounds), world,
+        _p(out_pos), _p(out_delta), _p(counts), _p(sums), _p(scratch),
+        _stream(pos)))
+    if n:
+        launches["bucket_events"] += 1
+    return out_pos, out_delta, counts, sums

@@ -10,16 +10,21 @@ are :mod:`pandepth_tpu_torch.feed`. The engine is elected as
 ``pandepth_tpu.run.make_engine`` elects it (:func:`make_engine`): one
 device runs :class:`~pandepth_tpu_torch.device.engine.CoverageEngine`,
 several the genome-range-sharded
-:class:`~pandepth_tpu_torch.sharding.engine.ShardedCoverageEngine`.
-Inputs and flags outside this slice exit non-zero with a message naming
-the ROADMAP.md item that ports it.
+:class:`~pandepth_tpu_torch.sharding.engine.ShardedCoverageEngine`, and
+a rank of a multi-process job
+(:mod:`pandepth_tpu_torch.sharding.launch`) the
+:class:`~pandepth_tpu_torch.sharding.multihost.MultihostCoverageEngine`,
+which feeds only the rank's share of the files, computes on every rank
+and writes on rank 0. Inputs and flags outside this slice exit non-zero
+with a message naming the ROADMAP.md item that ports it.
 """
 
 from __future__ import annotations
 
 import os
 import sys
-from typing import Dict, Iterator, List, NamedTuple, Optional
+from typing import Dict, Iterator, List, NamedTuple, Optional, Sequence, \
+    Tuple
 
 import numpy as np
 import torch
@@ -38,6 +43,7 @@ from pandepth_tpu_torch.io.fasta import load_ref_bases
 from pandepth_tpu_torch.io.paf import iter_paf_events, paf_contig_table
 from pandepth_tpu_torch.io.sam_text import SamReader
 from pandepth_tpu_torch.sharding.engine import ShardedCoverageEngine
+from pandepth_tpu_torch.sharding.multihost import MultihostCoverageEngine
 from pandepth_tpu_torch.stats.tables import (aggregate_genes, output_prefix,
                                              table_path, write_tables)
 from pandepth_tpu_torch.targets.model import TargetSet
@@ -58,6 +64,8 @@ class NativeFeedError(RuntimeError):
 
 
 Engine = CoverageEngine | ShardedCoverageEngine
+#: a rank's input files, as (index in the whole list, path)
+Share = Sequence[Tuple[int, str]]
 
 
 class Staged(NamedTuple):
@@ -79,8 +87,6 @@ def unported(config: RunConfig) -> Optional[str]:
         return "-a (ROADMAP.md queue 1, item 3)"
     if 0 < config.win_size < 150:
         return "-w below 150 (ROADMAP.md queue 1, item 3)"
-    if os.environ.get("PANDEPTH_MULTIHOST") == "1":
-        return "multi-host runs (ROADMAP.md queue 1, item 7)"
     return None
 
 
@@ -93,13 +99,31 @@ def devices_of(device) -> List[torch.device]:
     return [torch.device(d) for d in many]
 
 
+def multihost_wanted() -> bool:
+    """A rank of a multi-process job: a default process group of more
+    than one rank, or ``PANDEPTH_MULTIHOST=1`` (the launcher sets it, so
+    a world of one runs the same engine)."""
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized() \
+            and dist.get_world_size() > 1:
+        return True
+    return os.environ.get("PANDEPTH_MULTIHOST") == "1"
+
+
 def make_engine(layout: GenomeLayout, device, **kw) -> Engine:
-    """``pandepth_tpu.run.make_engine``'s election: the genome-range-
-    sharded engine, one row per entry of ``device``, when there is more
-    than one entry; the single-device engine on the one device
-    otherwise. ``PANDEPTH_SHARDED=1`` forces the sharded engine (even
-    over one device), ``=0`` the single-device engine on the first."""
+    """``pandepth_tpu.run.make_engine``'s election: the multi-process
+    engine on a rank of a job (:func:`multihost_wanted`; its one device);
+    the genome-range-sharded engine, one row per entry of ``device``,
+    when there is more than one entry; the single-device engine on the
+    one device otherwise. ``PANDEPTH_SHARDED=1`` forces the sharded
+    engine (even over one device), ``=0`` the single-device engine on the
+    first."""
     devs = devices_of(device)
+    if multihost_wanted():
+        if len(devs) != 1:
+            raise ValueError(f"a rank runs on one device, not {len(devs)}")
+        return MultihostCoverageEngine(layout, device=devs[0], **kw)
     force = os.environ.get("PANDEPTH_SHARDED")
     if force != "0" and (force == "1" or len(devs) > 1):
         return ShardedCoverageEngine(layout, devices=devs, **kw)
@@ -375,14 +399,18 @@ def feed_paf(engine: Engine, path: str, config: RunConfig,
     pl.close()
 
 
-def stage(config: RunConfig, device,
-          stats: Optional[RunStats] = None) -> Staged:
+def stage(config: RunConfig, device, stats: Optional[RunStats] = None,
+          share: Optional[Share] = None) -> Staged:
     """:func:`prepare`, then feed every event of every input file into
-    the engine."""
+    the engine; on a rank of a multi-process job, of its ``share`` of the
+    files alone, each as the member of the list that it is (the run was
+    prepared on the whole list)."""
     st = prepare(config, device, stats)
     paf = is_paf(config.inputs[0])
+    if share is None:
+        share = list(enumerate(config.inputs))
     with phase(stats, "feed"):
-        for i, path in enumerate(config.inputs):
+        for i, path in share:
             if paf:
                 feed_paf(st.engine, path, config, st.names)
             elif i == 0:
@@ -409,21 +437,27 @@ def finalize_and_write(config: RunConfig, st: Staged,
     # one query batch: the sweep state need not outlive it
     if hasattr(engine, "keep_state"):
         engine.keep_state = False
+    if isinstance(engine, MultihostCoverageEngine):
+        with phase(stats, "exchange"):
+            engine.exchange()
     with phase(stats, "segstats"):
         seg = engine.segment_stats(targets.gene_tid[targets.seg_gene],
                                    np.asarray(targets.seg_start),
                                    np.asarray(targets.seg_end))
         gene_cover, gene_dsum = aggregate_genes(targets, seg.cover,
                                                 seg.depth_sum)
+    if getattr(engine, "rank", 0) != 0:
+        return   # every rank holds the tables; rank 0 writes them
     with phase(stats, "write"):
         write_tables(table_path(output_prefix(config.out_prefix), st.mode),
                      st.mode, st.ref_bases is not None, st.names, targets,
                      gene_cover, gene_dsum, None)
 
 
-def run(config: RunConfig, device) -> int:
-    """The whole run on ``device`` (one device or a sequence of them);
-    returns the exit code."""
+def run(config: RunConfig, device, share: Optional[Share] = None) -> int:
+    """The whole run on ``device`` (one device or a sequence of them), of
+    ``share`` of the input files on a rank of a multi-process job (see
+    :func:`stage`); returns the exit code."""
     if not config.inputs or not config.out_prefix:
         print("Error: lack argument -i or -o ", file=sys.stderr)
         return 1
@@ -439,7 +473,7 @@ def run(config: RunConfig, device) -> int:
         print("INFO: Run paf Format data ")
     stats = RunStats()
     try:
-        st = stage(config, device, stats)
+        st = stage(config, device, stats, share)
     except Unported as e:
         print(f"Error: pandepth_tpu_torch does not run {e} yet",
               file=sys.stderr)

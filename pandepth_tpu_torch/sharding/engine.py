@@ -62,9 +62,6 @@ class ShardedCoverageEngine:
 
     # host bucketing filters sentinels anyway: unpadded feeds are best
     wants_padded_events = False
-    # the JAX package's run helpers (_is_writer_rank) read it: handed
-    # this engine, they never start jax
-    jax_free = True
 
     def __init__(self, layout: GenomeLayout, flags_mask: int = 1796,
                  min_mapq: int = -1, min_dep: int = 1,

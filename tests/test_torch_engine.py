@@ -171,7 +171,7 @@ def test_engine_surface(tier, monkeypatch):
     JAX engine's."""
     monkeypatch.setenv("PANDEPTH_ENC", "1")
     lay, port, ref = _engines(tier)
-    assert port.wants_padded_events and port.jax_free
+    assert port.wants_padded_events
     assert port.wants_encoded_windows is True is ref.wants_encoded_windows
     assert (port.enc_cap, port.enc_exc, port.enc_block) == \
         (ref.enc_cap, ref.enc_exc, ref.enc_block)
