@@ -57,7 +57,22 @@ see :func:`worker`.) Phases, one line each; any failure exits non-zero:
             and 1 events and up to 1024 ranges; the time of each beside its
             twin's and its bound; the Python decoder's time per batch;
             the code groups and blocks of each encoded path; the bytes
-            each feed copies to the card and the copies' time
+            each feed copies to the card and the copies' time. The two
+            single-pass look-back kernels also on the edges of their
+            tiles (pandepth_tpu_torch/synth.py's sweep_edge_events and
+            enc_edge_groups, after holding its tile sizes to the built
+            library's): sweep_scan at 1, a tile - 1, a tile, a tile + 1
+            and a few tiles of events, a carry past 2^32, a wrap18 pileup
+            across a tile boundary, c_sum past 2^64; decode_enc with
+            escapes on each tile's first and last slot, unsorted and
+            duplicated entries, entries at CAP and past it, full lists,
+            const rows of ns = 0 and CAP, and groups of 18 blocks (more
+            than one launch takes); 50 launches of each on the chr
+            path's inputs, every output array-equal to the first and to
+            the twin; the device time of each (torch.profiler) beside
+            its CUDA-event time, with the kernels and memsets a call puts
+            on the card; torch.cumsum of the chr path's deltas and piece
+            lengths as a yardstick for one of sweep_scan's sums
 5. golden   the port's CLI on cuda over the golden fixtures: chr, bed,
             gene and gene_gc from the BAM, native with encoded windows,
             native with raw pairs and with PANDEPTH_NO_NATIVE=1, and chr
@@ -190,6 +205,44 @@ def search_bytes(n: int, word: int) -> int:
     events: a binary search's ceil(log2 n) + 1 position words, then the
     piece's depth (4 B) and two int64 prefixes."""
     return (max(n - 1, 1).bit_length() + 1) * word + 20
+
+
+def device_ms(fn, iters: int = 10, tries: int = 3):
+    """(device ms per call, kernels per call, memsets per call) of ``fn``
+    under torch.profiler after a warm-up call: the sum of the device ops'
+    own times, which leaves out the host's gaps between launches. A trace
+    that lost events (a fractional count per call) is taken again, up to
+    ``tries`` times."""
+    for _ in range(tries):
+        got = _device_ms(fn, iters)
+        if got[1] == int(got[1]) and got[2] == int(got[2]):
+            break
+    return got
+
+
+def _device_ms(fn, iters: int):
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    ms, kernels, memsets = 0.0, 0, 0
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA or e.self_device_time_total <= 0 \
+                or e.key == "Activity Buffer Request":
+            continue
+        ms += e.self_device_time_total / 1e3
+        if "memset" in e.key.lower():
+            memsets += e.count
+        else:
+            kernels += e.count
+    return ms / iters, kernels / iters, memsets / iters
 
 
 def cuda_ms(fn, iters: int = 10) -> float:
@@ -348,6 +401,32 @@ class KernelCheck:
                 fail("kernels", f"{name} {what}: differs from its twin")
         self.cases[name] += 1
 
+    def repeat(self, name: str, kernel, want, what: str,
+               times: int = 50) -> None:
+        """``times`` launches of ``kernel`` on one input: every output
+        array-equal to the first launch's and to the twin's ``want`` (a
+        race in a look-back shows as an intermittent difference)."""
+        import torch
+
+        first = kernel()
+        for k in range(times):
+            got = kernel() if k else first
+            if not all(torch.equal(g, f) and torch.equal(g, w)
+                       for g, f, w in zip(got, first, want)):
+                fail("kernels", f"{name} {what}: launch {k + 1} of {times} "
+                                f"differs from the first or the twin")
+        self.notes.append(f"{name}: {times} launches on {what}, every "
+                          f"output array-equal to the first and the twin")
+
+    def device_note(self, name: str, kernel, what: str) -> None:
+        """The kernel's device time per call beside its CUDA-event time
+        (``ms``), with the launches each call puts on the device."""
+        dms, nk, nm = device_ms(kernel)
+        self.notes.append(f"{name} on {what}: device time {dms:.4f} ms per "
+                          f"call (profiler; CUDA events "
+                          f"{self.ms[name]:.4f} ms), {nk:g} kernel(s) and "
+                          f"{nm:g} memset(s) a call")
+
     def time(self, name: str, kernel, twin, nbytes: int,
              note: str = "") -> None:
         """The kernel's and the twin's times, and the bound: the least
@@ -396,9 +475,9 @@ class KernelCheck:
         pos_s, order = torch.sort(pos, stable=True)
         delta_s = delta[order]
         got = kernels.sweep_scan(pos_s, delta_s, min_dep, wrap18, sentinel)
-        want = sweep.sweep_scan_reference(pos_s, delta_s, min_dep, wrap18,
-                                          sentinel)
-        self.compare("sweep_scan", got, want, what)
+        scan_want = sweep.sweep_scan_reference(pos_s, delta_s, min_dep,
+                                               wrap18, sentinel)
+        self.compare("sweep_scan", got, scan_want, what)
         depth, c_cov, c_sum = got
         got = kernels.eval_pair(pos_s, depth, c_cov, c_sum, min_dep, lo, hi)
         want = sweep.eval_pair_reference(pos_s, depth, c_cov, c_sum,
@@ -409,13 +488,22 @@ class KernelCheck:
         if not timed:
             return
         n, w, b = pos_s.numel(), pos_s.element_size(), lo.numel()
-        self.time("sweep_scan",
-                  lambda: kernels.sweep_scan(pos_s, delta_s, min_dep,
-                                             wrap18, sentinel),
+        scan = lambda: kernels.sweep_scan(pos_s, delta_s, min_dep,  # noqa
+                                          wrap18, sentinel)
+        self.repeat("sweep_scan", scan, scan_want, what)
+        self.time("sweep_scan", scan,
                   lambda: sweep.sweep_scan_reference(pos_s, delta_s,
                                                      min_dep, wrap18,
                                                      sentinel),
                   n * (w + 4 + 4 + 8 + 8))
+        self.device_note("sweep_scan", scan, what)
+        plen = torch.diff(c_cov, prepend=c_cov[:1] * 0)
+        cum32 = cuda_ms(lambda: torch.cumsum(delta_s, 0, dtype=torch.int32))
+        cum64 = cuda_ms(lambda: torch.cumsum(plen, 0))
+        self.notes.append(f"yardstick for one of sweep_scan's three sums "
+                          f"(not library_ms): torch.cumsum of the {n} int32 "
+                          f"deltas {cum32:.4f} ms, of the {n} int64 piece "
+                          f"lengths {cum64:.4f} ms")
         self.time("eval_pair",
                   lambda: kernels.eval_pair(pos_s, depth, c_cov, c_sum,
                                             min_dep, lo, hi),
@@ -474,11 +562,19 @@ class KernelCheck:
                         nbytes += t.numel() * t.element_size()
                 nbytes += 2 * sum(c[..., 0, :].numel() if len(g) == 4
                                   else c.numel() for c in g[0]) * (word + 4)
-            self.time("decode_enc",
-                      lambda: [decoders(g)[0](*g, pos_max=pos_max)
-                               for g in present],
+            def decode():
+                return [t for g in present
+                        for t in decoders(g)[0](*g, pos_max=pos_max)]
+
+            self.time("decode_enc", decode,
                       lambda: [decoders(g)[1](*g, pos_max=pos_max)
                                for g in present], nbytes, note)
+            if not note:
+                self.repeat("decode_enc", decode,
+                            [t for g in present
+                             for t in decoders(g)[1](*g, pos_max=pos_max)],
+                            what)
+                self.device_note("decode_enc", decode, what)
 
     def finalize_enc_case(self, groups, cp, cd, lo, hi, pos_max: int,
                           min_dep: int, wrap18: bool, what: str) -> None:
@@ -511,9 +607,35 @@ class KernelCheck:
 def sweep_edge_cases(check: KernelCheck, dev) -> None:
     """Random events on every tier with duplicates, sentinel tails, a
     deep pileup past 18 bits, and queries inside, on and past the
-    events: pack_events, sweep_scan, eval_pair and eval_boundaries."""
+    events: pack_events, sweep_scan, eval_pair and eval_boundaries; then
+    sweep_scan on the edges of its tiles and look-backs
+    (``synth.sweep_edge_events``, the cases tests/test_torch_sweep.py
+    holds the twin to JAX on), after the library's stable sort."""
     import numpy as np
     import torch
+
+    from pandepth_tpu_torch import synth
+    from pandepth_tpu_torch.device import kernels, sweep
+    from pandepth_tpu_torch.device.convert import positions_to_words
+
+    lib = kernels.library()
+    tiles = (lib.pdt_sweep_scan_tile(), lib.pdt_decode_enc_tile())
+    if tiles != (synth.SWEEP_TILE, synth.DEC_TILE):
+        fail("kernels", f"the library's tiles {tiles} are not synth's "
+                        f"{(synth.SWEEP_TILE, synth.DEC_TILE)}: the edge "
+                        f"cases miss the tile boundaries")
+    for name, pos, delta, pos_dt, min_dep, wrap18 in \
+            synth.sweep_edge_events(seed=5):
+        p = torch.from_numpy(positions_to_words(pos, pos_dt)).to(dev)
+        pos_s, order = torch.sort(p, stable=True)
+        delta_s = torch.from_numpy(delta).to(dev)[order]
+        pm = int(np.iinfo(pos_dt).max)
+        check.compare("sweep_scan",
+                      kernels.sweep_scan(pos_s, delta_s, min_dep, wrap18, pm),
+                      sweep.sweep_scan_reference(pos_s, delta_s, min_dep,
+                                                 wrap18, pm),
+                      f"look-back edge: {name}, min_dep={min_dep} "
+                      f"wrap18={wrap18}")
 
     rng = np.random.RandomState(3)
     tiers = [(np.int32, 2_000_000_000), (np.uint32, 4_200_000_000),
@@ -553,13 +675,19 @@ def enc_edge_cases(check: KernelCheck, dev) -> None:
     (negative jumps wrap the uint32 tier), zero rows, short rows, a
     partial block, windows of 2^19 slots (256 scan tiles a row) and of
     5,000 (a ragged last tile); then the whole finalize_encoded over the
-    four groups, a raw chunk with a sentinel tail and 300 queries."""
+    four groups, a raw chunk with a sentinel tail and 300 queries; and
+    every group on the edges of the kernel's tiles
+    (``synth.enc_edge_groups``: escapes on each tile's first and last
+    slot, unsorted and duplicated entries, entries at CAP and past it, a
+    full list, const rows with ns = 0 and ns = CAP), the cases
+    tests/test_torch_encoded.py holds the twins to JAX on; and groups of
+    18 blocks, more than one launch takes."""
     import numpy as np
     import torch
 
     from pandepth_tpu_torch.device.convert import (enc_group_from_numpy,
                                                    positions_to_words)
-    from pandepth_tpu_torch.synth import enc_group
+    from pandepth_tpu_torch.synth import enc_edge_groups, enc_group
 
     rng = np.random.RandomState(8)
     kinds = ((np.uint8, False), (np.uint16, False), (np.uint8, True),
@@ -568,6 +696,15 @@ def enc_edge_cases(check: KernelCheck, dev) -> None:
                          (np.uint32, 4_200_000_000),
                          (np.int64, 17_000_000_000)):
         pm = int(np.iinfo(pos_dt).max)
+        tier = np.dtype(pos_dt).name
+        for kind, g in enc_edge_groups(pos_dt, seed=3 + len(tier)):
+            check.decode_cases([enc_group_from_numpy(g, pos_dt, dev)], pm,
+                               f"look-back edge: {tier} tier, {kind}")
+        for const in (False, True):   # more blocks than one launch takes
+            g, _ = enc_group(rng, np.uint8, pos_dt, 10_000, span - 100_000,
+                             const, (1,) * 17 + (3,), 300, 8)
+            check.decode_cases([enc_group_from_numpy(g, pos_dt, dev)], pm,
+                               f"{tier} tier, 18 blocks of 300 slots")
         for cap, ce, rows in ((1 << 19, 1 << 13, (8, 3)),
                               (5000, 64, (2, 1))):
             groups = [enc_group_from_numpy(enc_group(

@@ -19,6 +19,7 @@
 // int64 differences equal the JAX functions' differences in their
 // position dtype: every output is array-equal to the JAX package's.
 
+#include <atomic>
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -101,36 +102,339 @@ __global__ void pack_events_kernel(const In* __restrict__ starts,
 }
 
 // ---------------------------------------------------------------------
+// Single-pass scans by decoupled look-back (Merrill and Garland, "Single-
+// pass Parallel Prefix Scan with Decoupled Look-back", NVIDIA 2016).
+// A block takes its tile from an atomic counter, not from blockIdx, so
+// every tile of a lower index is held by a block that already runs: no
+// block ever waits on one that has not been scheduled. A tile publishes
+// its aggregate as soon as it has it; one warp then reads the status of
+// 32 predecessors at a time, one a lane, sums their aggregates back to
+// the nearest inclusive prefix, and the tile publishes its own inclusive
+// prefix.
+// Values go to L2 (st.cg) before a status word stored with release
+// semantics; a reader loads the status relaxed, fences (acq_rel), then
+// loads the values from L2 (ld.cg). A tile's aggregate and its inclusive
+// prefix have separate slots, so a reader that saw "aggregate" never
+// reads a prefix being written. The status words are zeroed on the
+// call's stream before the launch (the caching allocator hands out dirty
+// scratch), with the tile counter beside them: one memset.
+
+constexpr unsigned ST_NONE = 0;   // not published yet
+constexpr unsigned ST_AGG = 1;    // the tile's aggregate
+constexpr unsigned ST_INC = 2;    // its inclusive prefix
+
+// one status array: a flag per tile, NV u64 words per value
+struct Lookback {
+    unsigned* flag;
+    u64* agg;
+    u64* inc;
+};
+
+__device__ __forceinline__ void st_release(unsigned* p, unsigned v) {
+    asm volatile("st.release.gpu.u32 [%0], %1;" ::"l"(p), "r"(v)
+                 : "memory");
+}
+
+__device__ __forceinline__ unsigned ld_relaxed(const unsigned* p) {
+    unsigned v;
+    asm volatile("ld.relaxed.gpu.u32 %0, [%1];"
+                 : "=r"(v)
+                 : "l"(p)
+                 : "memory");
+    return v;
+}
+
+template <int NV>
+__device__ __forceinline__ void publish(Lookback s, int64_t tile,
+                                        const u64 (&v)[NV], unsigned what) {
+    u64* dst = (what == ST_INC ? s.inc : s.agg) + tile * NV;
+#pragma unroll
+    for (int k = 0; k < NV; ++k) __stcg(dst + k, v[k]);
+    st_release(s.flag + tile, what);
+}
+
+// Nanoseconds a polling warp sleeps before it reads its predecessors'
+// status again: the waiting warps' polls otherwise crowd the L2 lines of
+// the status words.
+constexpr int LOOKBACK_SLEEP_NS = 100;
+
+// the acquire half of the status protocol, after a relaxed load
+__device__ __forceinline__ void fence_acquire() {
+    asm volatile("fence.acq_rel.gpu;" ::: "memory");
+}
+
+// Called by the 32 lanes of one warp: on every lane, the sum of the
+// values of tiles [first, tile), where tile `first` publishes an
+// inclusive prefix (its own value, or a base plus it). Lane l reads the
+// predecessor at distance l + 1, then 32 further back each pass, until
+// some lane finds an inclusive prefix.
+template <int NV>
+__device__ void look_back(Lookback s, int64_t first, int64_t tile,
+                          u64 (&excl)[NV]) {
+    const int lane = threadIdx.x & 31;
+#pragma unroll
+    for (int k = 0; k < NV; ++k) excl[k] = 0;
+    for (int64_t p = tile - 1 - lane;; p -= 32) {
+        unsigned f;   // a tile before `first` reads as an inclusive zero
+        while (true) {
+            f = p >= first ? ld_relaxed(s.flag + p) : ST_INC;
+            if (!__any_sync(0xffffffffu, f == ST_NONE)) break;
+            __nanosleep(LOOKBACK_SLEEP_NS);
+        }
+        fence_acquire();
+        // lanes up to the first with an inclusive prefix add their values
+        const unsigned inc = __ballot_sync(0xffffffffu, f == ST_INC);
+        const int stop = inc ? __ffs(inc) - 1 : 31;
+#pragma unroll
+        for (int k = 0; k < NV; ++k) {
+            u64 v = lane <= stop && p >= first
+                        ? __ldcg((f == ST_INC ? s.inc : s.agg) + p * NV + k)
+                        : 0;
+#pragma unroll
+            for (int o = 16; o > 0; o >>= 1)
+                v += __shfl_xor_sync(0xffffffffu, v, o);
+            excl[k] += v;
+        }
+        if (inc) return;
+    }
+}
+
+// The tile's exclusive prefix, on every thread of the block (through
+// `shared`): published from `tot`, resolved by warp 0. Tile `first`'s
+// exclusive prefix is `base`. All threads must call it.
+template <int NV>
+__device__ void tile_prefix(Lookback s, int64_t first, int64_t tile,
+                            const u64 (&base)[NV], const u64 (&tot)[NV],
+                            u64* shared, u64 (&excl)[NV]) {
+    if (threadIdx.x < 32) {
+        if (tile == first) {
+            if (threadIdx.x == 0) {
+                u64 inc[NV];
+#pragma unroll
+                for (int k = 0; k < NV; ++k) {
+                    inc[k] = base[k] + tot[k];
+                    shared[k] = base[k];
+                }
+                publish<NV>(s, tile, inc, ST_INC);
+            }
+        } else {
+            if (threadIdx.x == 0) publish<NV>(s, tile, tot, ST_AGG);
+            u64 ex[NV];
+            look_back<NV>(s, first, tile, ex);
+            if (threadIdx.x == 0) {
+                u64 inc[NV];
+#pragma unroll
+                for (int k = 0; k < NV; ++k) {
+                    inc[k] = ex[k] + tot[k];
+                    shared[k] = ex[k];
+                }
+                publish<NV>(s, tile, inc, ST_INC);
+            }
+        }
+    }
+    __syncthreads();
+#pragma unroll
+    for (int k = 0; k < NV; ++k) excl[k] = shared[k];
+}
+
+// Scratch of a look-back kernel, in int64 words: the tile counter and
+// `nstages` flag arrays (zeroed by one memset of the first `zeroed`
+// words), then each stage's aggregate and inclusive slots. With
+// scratch == nullptr it only counts.
+inline int64_t carve_lookback(int64_t* scratch, int64_t ntiles, int nstages,
+                              const int* nv, unsigned** counter,
+                              Lookback* stages, int64_t* zeroed) {
+    const int64_t flag_words = (1 + nstages * ntiles + 1) / 2;
+    int64_t words = flag_words;
+    unsigned* flags = scratch ? reinterpret_cast<unsigned*>(scratch) : nullptr;
+    if (scratch) *counter = flags;
+    for (int k = 0; k < nstages; ++k) {
+        if (scratch) {
+            stages[k].flag = flags + 1 + k * ntiles;
+            stages[k].agg = reinterpret_cast<u64*>(scratch + words);
+            stages[k].inc = stages[k].agg + nv[k] * ntiles;
+        }
+        words += 2 * nv[k] * ntiles;
+    }
+    if (zeroed) *zeroed = flag_words;
+    return words;
+}
+
+// Lets `kernel` take `bytes` of dynamic shared memory on the current
+// device. The attribute belongs to each device's copy of the kernel, so
+// it is set once per device (bit d of `done`, one per kernel instance),
+// not on every call, where it would add host time to each launch.
+template <typename K>
+cudaError_t allow_smem(K kernel, int bytes, std::atomic<u64>& done) {
+    int dev;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err != cudaSuccess) return err;
+    const u64 bit = dev < 64 ? 1ull << dev : 0;
+    if (done.load(std::memory_order_acquire) & bit) return cudaSuccess;
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err == cudaSuccess) done.fetch_or(bit, std::memory_order_release);
+    return err;
+}
+
+// shared-memory slots with one pad word every 32 four-byte words or every
+// 16 eight-byte words: both a striped access (thread t at t + k * THREADS)
+// and a blocked one (thread t at t * ITEMS + k) hit distinct banks
+template <typename T>
+__device__ __forceinline__ int padded(int i) {
+    return sizeof(T) == 8 ? i + (i >> 4) : i + (i >> 5);
+}
+
+template <typename T>
+__host__ __device__ constexpr int padded_size(int n) {
+    return sizeof(T) == 8 ? n + n / 16 : n + n / 32;
+}
+
+// ---------------------------------------------------------------------
 // K2 sweep_scan — replaces the arithmetic of
 // pandepth_tpu/device/sweep.py:sort_events (the sort itself stays a
 // library sort, as it was an XLA primitive).
-// Bound on the H100: memory. Per event it reads delta (4 B) twice and
-// pos (4-8 B) once, and writes depth (4 B), c_cov and c_sum (8 B each)
-// and then re-reads and re-writes c_cov/c_sum for the carry: ~60 B per
-// event, ~1 GB at 16.8M events. The design is a multi-pass block scan:
-//   1. per-block delta totals            (delta_block_totals_kernel)
-//   2. one-block exclusive scan of them  (exclusive_scan_one_block)
-//   3. per-block depth with its carry, then plen and plen*depth and
-//      their in-block inclusive prefixes + block totals
-//                                         (scan_depth_kernel)
-//   4. one-block exclusive scans of the two total arrays
-//   5. carry add                          (add_carry_kernel)
-// Decoupled look-back would fold this into one pass; that is later work.
+// Bound on the H100: memory. Per event it must read delta (4 B) and pos
+// (4-8 B) and write depth (4 B), c_cov and c_sum (8 B each): 32 B per
+// event in the uint32 tier, 486 MB at the chr path's 15.2M events. The
+// design is one pass, one launch: each tile is read once and written
+// once, through shared memory, so every warp-wide load and store covers
+// contiguous bytes whatever the alignment of the row it is given (the
+// sharded engine passes rows of odd widths); the arithmetic runs on the
+// blocked layout (SWEEP_ITEMS consecutive events a thread, their piece
+// lengths kept in registers). The depth of
+// an event needs the tile's incoming delta carry, and c_cov/c_sum need
+// that depth (covered = depth >= min_dep after the wrap18 mask), so a
+// tile resolves two look-backs in turn: the u32 delta sum, published at
+// once, then the (cov, sum) pair, published as soon as the delta prefix
+// is known. The second never waits on a chain: a predecessor's pair
+// aggregate is ready as soon as its own delta prefix is. Deltas sum in
+// u32 and the prefix is cast to int32 (jnp.cumsum(..., dtype=int32));
+// the wrap18 mask applies to the whole prefix; the pair wraps mod 2^64 as
+// JAX's int64 cumsums do.
 
-__global__ void delta_block_totals_kernel(const int32_t* __restrict__ delta,
-                                          int64_t n,
-                                          uint32_t* __restrict__ tot) {
-    __shared__ uint32_t warp_tot[32];
-    const int64_t base = (int64_t)blockIdx.x * TILE;
-    uint32_t s = 0;
+// Tiles of 8,192 events: the inclusive prefix crosses each tile in turn,
+// so fewer, larger tiles shorten that chain; one 512-thread block (122
+// registers a thread, 103 KB of shared memory) fills an SM. The tile
+// sizes here and of decode_enc are also pandepth_tpu_torch/synth.py's
+// SWEEP_TILE and DEC_TILE, which chip_smoke.py holds to the library's.
+constexpr int SWEEP_THREADS = 512;
+constexpr int SWEEP_ITEMS = 16;
+constexpr int SWEEP_TILE = SWEEP_THREADS * SWEEP_ITEMS;
+// dynamic shared memory: the positions' slots (u64), then the deltas'
+constexpr int SWEEP_SMEM = padded_size<u64>(SWEEP_TILE) * 8
+                           + padded_size<uint32_t>(SWEEP_TILE) * 4;
+
+template <typename P>
+__global__ void __launch_bounds__(SWEEP_THREADS)
+sweep_scan_kernel(const P* __restrict__ pos,
+                  const int32_t* __restrict__ delta, int64_t n,
+                  int32_t min_dep, int wrap18, P pmax,
+                  int32_t* __restrict__ depth, u64* __restrict__ c_cov,
+                  u64* __restrict__ c_sum, unsigned* counter, Lookback dsc,
+                  Lookback csc) {
+    extern __shared__ __align__(16) unsigned char smem[];
+    u64* sp = reinterpret_cast<u64*>(smem);   // positions, c_cov, c_sum
+    uint32_t* sd = reinterpret_cast<uint32_t*>(
+        sp + padded_size<u64>(SWEEP_TILE));    // deltas, depths
+    __shared__ u64 warp64[32];
+    __shared__ uint32_t warp32[32];
+    __shared__ u64 prefix[2];
+    __shared__ unsigned s_tile;
+    const int tid = threadIdx.x;
+    if (tid == 0) s_tile = atomicAdd(counter, 1u);
+    __syncthreads();
+    const int64_t tile = s_tile;
+    const int64_t base = tile * SWEEP_TILE;
+
 #pragma unroll
-    for (int k = 0; k < ITEMS; ++k) {
-        const int64_t i = base + (int64_t)k * THREADS + threadIdx.x;
-        if (i < n) s += (uint32_t)delta[i];
+    for (int k = 0; k < SWEEP_ITEMS; ++k) {   // striped, coalesced
+        const int j = k * SWEEP_THREADS + tid;
+        const int64_t i = base + j;
+        sd[padded<uint32_t>(j)] = i < n ? (uint32_t)delta[i] : 0u;
+        sp[padded<u64>(j)] = i < n ? (u64)(int64_t)pos[i] : 0;
     }
-    uint32_t block_total;
-    block_exclusive_scan<uint32_t>(s, warp_tot, &block_total);
-    if (threadIdx.x == 0) tot[blockIdx.x] = block_total;
+    __syncthreads();
+
+    const int j0 = tid * SWEEP_ITEMS;   // blocked from here
+    uint32_t d[SWEEP_ITEMS];
+    uint32_t dsum = 0;
+#pragma unroll
+    for (int k = 0; k < SWEEP_ITEMS; ++k) {
+        d[k] = sd[padded<uint32_t>(j0 + k)];
+        dsum += d[k];
+    }
+    uint32_t dtot;
+    const uint32_t dex = block_exclusive_scan<uint32_t>(dsum, warp32, &dtot);
+    u64 dpre[1];
+    {
+        const u64 zero[1] = {0}, tot[1] = {dtot};
+        tile_prefix<1>(dsc, 0, tile, zero, tot, prefix, dpre);
+    }
+
+    uint32_t run = (uint32_t)dpre[0] + dex;
+    u64 plen[SWEEP_ITEMS];
+    u64 tcov = 0, tsum = 0;
+#pragma unroll
+    for (int k = 0; k < SWEEP_ITEMS; ++k) {
+        run += d[k];
+        int32_t dep = (int32_t)run;   // jnp.cumsum(..., dtype=int32)
+        if (wrap18) dep &= WRAP18_MASK;
+        d[k] = (uint32_t)dep;
+        const int64_t i = base + j0 + k;
+        u64 len = 0;
+        if (i < n && dep >= min_dep) {
+            int64_t nxt = (int64_t)pmax;
+            if (i + 1 < n)
+                nxt = j0 + k + 1 < SWEEP_TILE
+                          ? (int64_t)sp[padded<u64>(j0 + k + 1)]
+                          : (int64_t)pos[i + 1];   // the next tile's first
+            len = (u64)(nxt - (int64_t)sp[padded<u64>(j0 + k)]);
+        }
+        plen[k] = len;
+        tcov += len;
+        tsum += len * (u64)(int64_t)dep;
+        sd[padded<uint32_t>(j0 + k)] = (uint32_t)dep;
+    }
+    u64 ctot, stot;   // the scans' barriers also publish sd's depths
+    const u64 ex_cov = block_exclusive_scan<u64>(tcov, warp64, &ctot);
+    const u64 ex_sum = block_exclusive_scan<u64>(tsum, warp64, &stot);
+#pragma unroll
+    for (int k = 0; k < SWEEP_ITEMS; ++k) {
+        const int j = k * SWEEP_THREADS + tid;
+        if (base + j < n) depth[base + j] = (int32_t)sd[padded<uint32_t>(j)];
+    }
+    u64 cpre[2];
+    {
+        const u64 zero[2] = {0, 0}, tot[2] = {ctot, stot};
+        tile_prefix<2>(csc, 0, tile, zero, tot, prefix, cpre);
+    }
+
+    u64 cov = cpre[0] + ex_cov;
+#pragma unroll
+    for (int k = 0; k < SWEEP_ITEMS; ++k) {
+        cov += plen[k];
+        sp[padded<u64>(j0 + k)] = cov;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int k = 0; k < SWEEP_ITEMS; ++k) {
+        const int j = k * SWEEP_THREADS + tid;
+        if (base + j < n) c_cov[base + j] = sp[padded<u64>(j)];
+    }
+    __syncthreads();
+    u64 sum = cpre[1] + ex_sum;
+#pragma unroll
+    for (int k = 0; k < SWEEP_ITEMS; ++k) {
+        sum += plen[k] * (u64)(int64_t)(int32_t)d[k];
+        sp[padded<u64>(j0 + k)] = sum;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int k = 0; k < SWEEP_ITEMS; ++k) {
+        const int j = k * SWEEP_THREADS + tid;
+        if (base + j < n) c_sum[base + j] = sp[padded<u64>(j)];
+    }
 }
 
 // In-place exclusive scan of n values by ONE block of TOTALS_THREADS.
@@ -146,87 +450,6 @@ __global__ void exclusive_scan_one_block(T* __restrict__ a, int64_t n) {
         if (i < n) a[i] = carry + ex;
         carry += chunk_total;
     }
-}
-
-template <typename P>
-__global__ void scan_depth_kernel(const P* __restrict__ pos,
-                                  const int32_t* __restrict__ delta,
-                                  int64_t n,
-                                  const uint32_t* __restrict__ delta_carry,
-                                  int32_t min_dep, int wrap18, P pmax,
-                                  int32_t* __restrict__ depth,
-                                  u64* __restrict__ c_cov,
-                                  u64* __restrict__ c_sum,
-                                  u64* __restrict__ cov_tot,
-                                  u64* __restrict__ sum_tot) {
-    __shared__ uint32_t warp32[32];
-    __shared__ u64 warp64[32];
-    const int64_t base = (int64_t)blockIdx.x * TILE
-                         + (int64_t)threadIdx.x * ITEMS;
-    uint32_t d[ITEMS];
-    uint32_t thread_dsum = 0;
-#pragma unroll
-    for (int k = 0; k < ITEMS; ++k) {
-        const int64_t i = base + k;
-        d[k] = i < n ? (uint32_t)delta[i] : 0u;
-        thread_dsum += d[k];
-    }
-    uint32_t block_dsum;
-    uint32_t run = block_exclusive_scan<uint32_t>(thread_dsum, warp32,
-                                                  &block_dsum)
-                   + delta_carry[blockIdx.x];
-
-    u64 plen[ITEMS];
-    u64 pdep[ITEMS];
-    u64 thread_cov = 0;
-    u64 thread_sum = 0;
-#pragma unroll
-    for (int k = 0; k < ITEMS; ++k) {
-        const int64_t i = base + k;
-        run += d[k];
-        int32_t dep = (int32_t)run;  // jnp.cumsum(..., dtype=int32)
-        if (wrap18) dep &= WRAP18_MASK;
-        u64 len = 0;
-        if (i < n) {
-            depth[i] = dep;
-            if (dep >= min_dep) {
-                const P nxt = i + 1 < n ? pos[i + 1] : pmax;
-                len = (u64)((int64_t)nxt - (int64_t)pos[i]);
-            }
-        }
-        plen[k] = len;
-        pdep[k] = len * (u64)(int64_t)dep;
-        thread_cov += plen[k];
-        thread_sum += pdep[k];
-    }
-    u64 block_cov, block_sum;
-    u64 cov = block_exclusive_scan<u64>(thread_cov, warp64, &block_cov);
-    u64 sum = block_exclusive_scan<u64>(thread_sum, warp64, &block_sum);
-#pragma unroll
-    for (int k = 0; k < ITEMS; ++k) {
-        const int64_t i = base + k;
-        cov += plen[k];
-        sum += pdep[k];
-        if (i < n) {
-            c_cov[i] = cov;
-            c_sum[i] = sum;
-        }
-    }
-    if (threadIdx.x == 0) {
-        cov_tot[blockIdx.x] = block_cov;
-        sum_tot[blockIdx.x] = block_sum;
-    }
-}
-
-__global__ void add_carry_kernel(int64_t n, const u64* __restrict__ cov_tot,
-                                 const u64* __restrict__ sum_tot,
-                                 u64* __restrict__ c_cov,
-                                 u64* __restrict__ c_sum) {
-    const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-    if (i >= n) return;
-    const int64_t blk = i / TILE;
-    c_cov[i] += cov_tot[blk];
-    c_sum[i] += sum_tot[blk];
 }
 
 // ---------------------------------------------------------------------
@@ -464,23 +687,25 @@ __global__ void emit_events_kernel(const int32_t* __restrict__ tid,
 // zigzag decode of a u8/u16 code and each escape slot (code = the code
 // type's max) takes its true value from an int64 side list: JAX adds
 // (exc - zig(esc)) at the slot, and so does this kernel. The mixed
-// format carries a length plane with escapes of its own; the const
-// format one length per row for its first ns[r] slots, 0 after them.
-// Bound on the H100: memory. Per slot it reads 1-2 B of codes per plane
-// and writes the start and end words and their +-1 deltas, then re-reads
-// and re-writes the two words: ~40 B per slot in the int32 tier, ~58 B
-// in the others. The sums are row scans of 2^19 slots, so one block per
-// row would leave most of the 132 SMs idle at 8-32 rows; the design is
-// sweep_scan's multi-pass one, per row, over a (tiles, rows) grid:
-//   1. decoded deltas and lengths into the output words, the +-1
-//      deltas, per-tile delta totals                 (dec_init_kernel)
-//   2. one thread per escape entry: its correction added to the slot
-//      and to the slot's tile total (atomics; slots are distinct within
-//      a row, so they never contend)                (dec_escape_kernel)
-//   3. per row, an exclusive scan of the tile totals from the row's
-//      base                                          (dec_row_scan_kernel)
-//   4. per tile, the in-tile scan from its carry: starts, then ends =
-//      start + len, in place                        (dec_scan_kernel)
+// format carries a length plane with escapes of its own, corrected by
+// (exc - esc); the const format one length per row for its first ns[r]
+// slots, 0 after them.
+// Bound on the H100: memory. Per slot it must read 1-2 B of codes per
+// plane and write the start and end words and their +-1 deltas: 12 B
+// per slot in the int32 tier, 24 B in the others, plus the codes. The
+// design is one pass, one launch per group of up to DEC_MAX_BLOCKS blocks
+// (their planes' pointers ride in the launch's parameters): rows are
+// independent, and within a row the tiles chain from the row's base
+// through a decoupled look-back on the start-delta sum (tile ids from one
+// counter, mapped row-major over the group's rows, so a tile's
+// predecessors hold lower ids). A tile decodes
+// its codes into shared memory (striped loads, coalesced), adds every
+// escape entry of its row that lands in it, then scans, publishes, and
+// writes each output once (striped stores). Escapes follow JAX's
+// scatter-add, not the engine's ascending lists: each tile reads its
+// row's whole list (CE int32 slots per plane, from L2), entries may come
+// in any order, duplicates add (shared-memory atomics), and entries
+// outside [0, CAP) -- unused ones hold CAP -- are dropped.
 // Tier arithmetic (A): JAX computes in the position dtype, and int32 and
 // uint32 wrap there, so the two 32-bit tiers sum in uint32 (the uint32
 // tier's words are then zero-extended to int64) and the int64 tier in
@@ -488,178 +713,180 @@ __global__ void emit_events_kernel(const int32_t* __restrict__ tid,
 // Zero tail slots and zero rows decode to zero-length events at the
 // previous position: depth-neutral, and kept, as in JAX.
 
+// Tiles of 4,096 slots: each tile reads its row's whole escape list, so
+// larger tiles read it fewer times.
+constexpr int DEC_THREADS = 256;
+constexpr int DEC_ITEMS = 16;
+constexpr int DEC_TILE = DEC_THREADS * DEC_ITEMS;
+constexpr int DEC_MAX_BLOCKS = 16;
+
+// The blocks of one group: each block's codes, escapes and slots, and the
+// group row its first row is.
+template <typename C>
+struct DecBlocks {
+    const C* codes[DEC_MAX_BLOCKS];
+    const int64_t* excs[DEC_MAX_BLOCKS];
+    const int32_t* slots[DEC_MAX_BLOCKS];
+    int64_t row0[DEC_MAX_BLOCKS];
+    int n;
+};
+
 template <typename C, typename W, typename A, bool CONST>
-__global__ void dec_init_kernel(const C* __restrict__ codes,
-                                const int32_t* __restrict__ lens,
-                                const int32_t* __restrict__ ns, int64_t cap,
-                                int64_t ntiles, W* __restrict__ starts,
-                                W* __restrict__ ends,
-                                int32_t* __restrict__ ds,
-                                int32_t* __restrict__ de,
-                                u64* __restrict__ tot) {
+__global__ void __launch_bounds__(DEC_THREADS)
+decode_enc_kernel(const DecBlocks<C> blk, const W* __restrict__ bases,
+                  const int32_t* __restrict__ lens,
+                  const int32_t* __restrict__ ns, int64_t cap, int64_t ce,
+                  int64_t ntiles, int64_t esc, W* __restrict__ starts,
+                  W* __restrict__ ends, int32_t* __restrict__ ds,
+                  int32_t* __restrict__ de, unsigned* counter,
+                  Lookback scan) {
+    extern __shared__ __align__(16) unsigned char smem[];
+    A* sv = reinterpret_cast<A*>(smem);   // deltas, then starts
+    A* sl = sv + padded_size<A>(DEC_TILE);  // lengths, then ends (mixed)
     __shared__ A warp_tot[32];
-    const int64_t r = blockIdx.y;
-    const int64_t tile = blockIdx.x;
-    const C* cd = codes + r * (CONST ? 1 : 2) * cap;
-    A s = 0;
+    __shared__ u64 prefix[1];
+    __shared__ unsigned s_tile;
+    const int tid = threadIdx.x;
+    if (tid == 0) s_tile = atomicAdd(counter, 1u);
+    __syncthreads();
+    const int64_t tile = s_tile;
+    const int64_t g = tile / ntiles;   // the group's row
+    int b = 0;                         // its block, and its row there
+    while (b + 1 < blk.n && blk.row0[b + 1] <= g) ++b;
+    const int64_t r = g - blk.row0[b];
+    const int64_t j_lo = (tile - g * ntiles) * DEC_TILE;   // first slot
+    const int64_t j_hi = j_lo + DEC_TILE < cap ? j_lo + DEC_TILE : cap;
+    const C* cd = blk.codes[b] + r * (CONST ? 1 : 2) * cap;
+    const int64_t* excs = blk.excs[b];
+    const int32_t* slots = blk.slots[b];
+    const int64_t out0 = g * cap;
+
 #pragma unroll
-    for (int k = 0; k < ITEMS; ++k) {
-        const int64_t j = tile * TILE + (int64_t)k * THREADS + threadIdx.x;
-        if (j < cap) {
-            const A z = (A)cd[j];
-            const A delta = (z >> 1) ^ ((A)0 - (z & (A)1));
-            A len;
-            if (CONST) len = j < ns[r] ? (A)(int64_t)lens[r] : (A)0;
-            else len = (A)cd[cap + j];
-            const int64_t i = r * cap + j;
-            starts[i] = (W)delta;
-            ends[i] = (W)len;
-            ds[i] = 1;
-            de[i] = -1;
-            s += delta;
+    for (int k = 0; k < DEC_ITEMS; ++k) {   // striped, coalesced
+        const int j = k * DEC_THREADS + tid;
+        const int64_t s = j_lo + j;
+        A delta = 0, len = 0;
+        if (s < j_hi) {
+            const A z = (A)cd[s];
+            delta = (z >> 1) ^ ((A)0 - (z & (A)1));
+            if (!CONST) len = (A)cd[cap + s];
+            ds[out0 + s] = 1;
+            de[out0 + s] = -1;
         }
+        sv[padded<A>(j)] = delta;
+        if (!CONST) sl[padded<A>(j)] = len;
     }
-    A block_total;
-    block_exclusive_scan<A>(s, warp_tot, &block_total);
-    if (threadIdx.x == 0) tot[r * ntiles + tile] = (u64)block_total;
-}
-
-template <typename W>
-__device__ __forceinline__ void word_add(W* p, u64 v);
-template <>
-__device__ __forceinline__ void word_add<int32_t>(int32_t* p, u64 v) {
-    atomicAdd(reinterpret_cast<unsigned int*>(p), (unsigned int)v);
-}
-template <>
-__device__ __forceinline__ void word_add<int64_t>(int64_t* p, u64 v) {
-    atomicAdd(reinterpret_cast<u64*>(p), v);
-}
-
-template <typename W, typename A, bool CONST>
-__global__ void dec_escape_kernel(const int64_t* __restrict__ excs,
-                                  const int32_t* __restrict__ slots,
-                                  int64_t cap, int64_t ce, int64_t ntiles,
-                                  int64_t esc, W* __restrict__ starts,
-                                  W* __restrict__ ends,
-                                  u64* __restrict__ tot) {
-    const int64_t r = blockIdx.y;
-    const int64_t k = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-    if (k >= ce) return;
-    // zig(esc): what the plain zigzag decode gave the escape slot
+    __syncthreads();
+    // zig(esc): what the plain zigzag decode gave an escape slot
     const int64_t zig_esc = (esc >> 1) ^ -(esc & 1);
     const int64_t row = r * (CONST ? 1 : 2) * ce;
-    // unused entries hold CAP; anything outside [0, CAP) is dropped, as
-    // JAX's scatter drops it
-    const int32_t sd = slots[row + k];
-    if (sd >= 0 && sd < cap) {
-        const A corr = (A)(excs[row + k] - zig_esc);
-        word_add<W>(starts + r * cap + sd, (u64)corr);
-        atomicAdd(tot + r * ntiles + sd / TILE, (u64)corr);
+    for (int64_t e = tid; e < ce; e += DEC_THREADS) {
+        const int32_t sd = slots[row + e];
+        if (sd >= j_lo && sd < j_hi)
+            atomicAdd(&sv[padded<A>((int)(sd - j_lo))],
+                      (A)(excs[row + e] - zig_esc));
+        if (!CONST) {
+            const int32_t sn = slots[row + ce + e];
+            if (sn >= j_lo && sn < j_hi)
+                atomicAdd(&sl[padded<A>((int)(sn - j_lo))],
+                          (A)(excs[row + ce + e] - esc));
+        }
     }
-    if (!CONST) {
-        const int32_t sl = slots[row + ce + k];
-        if (sl >= 0 && sl < cap)
-            word_add<W>(ends + r * cap + sl,
-                        (u64)(A)(excs[row + ce + k] - esc));
-    }
-}
+    __syncthreads();
 
-// Per row: tile totals -> exclusive prefixes starting at the row's base.
-// One block of TOTALS_THREADS per row.
-template <typename W, typename A>
-__global__ void dec_row_scan_kernel(const W* __restrict__ bases,
-                                    int64_t ntiles, u64* __restrict__ tot) {
-    __shared__ A warp_tot[32];
-    u64* t = tot + (int64_t)blockIdx.x * ntiles;
-    A carry = (A)bases[blockIdx.x];
-    for (int64_t b = 0; b < ntiles; b += blockDim.x) {
-        const int64_t i = b + threadIdx.x;
-        const A v = i < ntiles ? (A)t[i] : (A)0;
-        A chunk_total;
-        const A ex = block_exclusive_scan<A>(v, warp_tot, &chunk_total);
-        if (i < ntiles) t[i] = (u64)(carry + ex);
-        carry += chunk_total;
-    }
-}
-
-template <typename W, typename A>
-__global__ void dec_scan_kernel(int64_t cap, int64_t ntiles,
-                                const u64* __restrict__ tot,
-                                W* __restrict__ starts,
-                                W* __restrict__ ends) {
-    __shared__ A warp_tot[32];
-    const int64_t r = blockIdx.y;
-    const int64_t j0 = (int64_t)blockIdx.x * TILE
-                       + (int64_t)threadIdx.x * ITEMS;
-    W* st = starts + r * cap;
-    W* en = ends + r * cap;
-    A d[ITEMS];
-    A s = 0;
+    const int j0 = tid * DEC_ITEMS;   // blocked from here
+    A v[DEC_ITEMS];
+    A tsum = 0;
 #pragma unroll
-    for (int k = 0; k < ITEMS; ++k) {
-        d[k] = j0 + k < cap ? (A)st[j0 + k] : (A)0;
-        s += d[k];
+    for (int k = 0; k < DEC_ITEMS; ++k) {
+        v[k] = sv[padded<A>(j0 + k)];
+        tsum += v[k];
     }
-    A block_total;
-    A run = block_exclusive_scan<A>(s, warp_tot, &block_total)
-            + (A)tot[r * ntiles + blockIdx.x];
+    A tot;
+    const A ex = block_exclusive_scan<A>(tsum, warp_tot, &tot);
+    u64 pre[1];
+    {
+        const u64 base[1] = {(u64)(A)bases[g]}, t[1] = {(u64)tot};
+        tile_prefix<1>(scan, g * ntiles, tile, base, t, prefix, pre);
+    }
+    A run = (A)pre[0] + ex;
 #pragma unroll
-    for (int k = 0; k < ITEMS; ++k) {
-        const int64_t j = j0 + k;
-        run += d[k];
-        if (j < cap) {
-            st[j] = (W)run;
-            en[j] = (W)(run + (A)en[j]);
+    for (int k = 0; k < DEC_ITEMS; ++k) {
+        run += v[k];
+        sv[padded<A>(j0 + k)] = run;
+        if (!CONST) sl[padded<A>(j0 + k)] += run;   // end = start + len
+    }
+    __syncthreads();
+    const A ulen = CONST ? (A)(int64_t)lens[g] : (A)0;
+    const int64_t live = CONST ? (int64_t)ns[g] : 0;
+#pragma unroll
+    for (int k = 0; k < DEC_ITEMS; ++k) {
+        const int j = k * DEC_THREADS + tid;
+        const int64_t s = j_lo + j;
+        if (s < j_hi) {
+            const A start = sv[padded<A>(j)];
+            starts[out0 + s] = (W)start;
+            ends[out0 + s] = (W)(CONST ? start + (s < live ? ulen : (A)0)
+                                       : sl[padded<A>(j)]);
         }
     }
 }
 
 template <typename C, typename W, typename A, bool CONST>
-int decode_enc_typed(const C* codes, const int64_t* excs,
-                     const int32_t* slots, const W* bases,
+int decode_enc_typed(const DecBlocks<C>& blk, const W* bases,
                      const int32_t* lens, const int32_t* ns, int64_t rows,
                      int64_t cap, int64_t ce, W* starts, W* ends,
                      int32_t* ds, int32_t* de, int64_t* scratch,
                      cudaStream_t st) {
-    const int64_t ntiles = (cap + TILE - 1) / TILE;
-    u64* tot = reinterpret_cast<u64*>(scratch);
-    const dim3 tiles((unsigned int)ntiles, (unsigned int)rows);
-    dec_init_kernel<C, W, A, CONST><<<tiles, THREADS, 0, st>>>(
-        codes, lens, ns, cap, ntiles, starts, ends, ds, de, tot);
-    if (ce > 0) {
-        const dim3 entries((unsigned int)((ce + POINT_THREADS - 1)
-                                          / POINT_THREADS),
-                           (unsigned int)rows);
-        dec_escape_kernel<W, A, CONST><<<entries, POINT_THREADS, 0, st>>>(
-            excs, slots, cap, ce, ntiles, (int64_t)(C)~(C)0, starts, ends,
-            tot);
-    }
-    dec_row_scan_kernel<W, A><<<(unsigned int)rows, TOTALS_THREADS, 0, st>>>(
-        bases, ntiles, tot);
-    dec_scan_kernel<W, A><<<tiles, THREADS, 0, st>>>(cap, ntiles, tot,
-                                                     starts, ends);
+    const int64_t ntiles = (cap + DEC_TILE - 1) / DEC_TILE;
+    const int nv[1] = {1};
+    unsigned* counter;
+    Lookback scan;
+    int64_t zeroed;
+    carve_lookback(scratch, rows * ntiles, 1, nv, &counter, &scan, &zeroed);
+    const int bytes = padded_size<A>(DEC_TILE) * (int)sizeof(A)
+                      * (CONST ? 1 : 2);
+    static std::atomic<u64> smem_set{0};
+    cudaError_t err = allow_smem(decode_enc_kernel<C, W, A, CONST>, bytes,
+                                 smem_set);
+    if (err != cudaSuccess) return (int)err;
+    err = cudaMemsetAsync(scratch, 0, 8 * zeroed, st);
+    if (err != cudaSuccess) return (int)err;
+    decode_enc_kernel<C, W, A, CONST>
+        <<<(unsigned int)(rows * ntiles), DEC_THREADS, bytes, st>>>(
+            blk, bases, lens, ns, cap, ce, ntiles, (int64_t)(C)~(C)0,
+            starts, ends, ds, de, counter, scan);
     return (int)cudaGetLastError();
 }
 
 template <typename C, bool CONST>
-int decode_enc_tier(int tier, const void* codes, const int64_t* excs,
-                    const int32_t* slots, const void* bases,
-                    const int32_t* lens, const int32_t* ns, int64_t rows,
-                    int64_t cap, int64_t ce, void* starts, void* ends,
-                    int32_t* ds, int32_t* de, int64_t* scratch,
-                    cudaStream_t st) {
-    const C* c = (const C*)codes;
+int decode_enc_tier(int tier, int nblocks, const void* const* codes,
+                    const int64_t* const* excs, const int32_t* const* slots,
+                    const int64_t* block_rows, const void* bases,
+                    const int32_t* lens, const int32_t* ns, int64_t cap,
+                    int64_t ce, void* starts, void* ends, int32_t* ds,
+                    int32_t* de, int64_t* scratch, cudaStream_t st) {
+    DecBlocks<C> blk;
+    int64_t rows = 0;
+    for (int b = 0; b < nblocks; ++b) {
+        blk.codes[b] = (const C*)codes[b];
+        blk.excs[b] = excs[b];
+        blk.slots[b] = slots[b];
+        blk.row0[b] = rows;
+        rows += block_rows[b];
+    }
+    blk.n = nblocks;
     if (tier == TIER_I32)
         return decode_enc_typed<C, int32_t, uint32_t, CONST>(
-            c, excs, slots, (const int32_t*)bases, lens, ns, rows, cap, ce,
+            blk, (const int32_t*)bases, lens, ns, rows, cap, ce,
             (int32_t*)starts, (int32_t*)ends, ds, de, scratch, st);
     if (tier == TIER_U32)
         return decode_enc_typed<C, int64_t, uint32_t, CONST>(
-            c, excs, slots, (const int64_t*)bases, lens, ns, rows, cap, ce,
+            blk, (const int64_t*)bases, lens, ns, rows, cap, ce,
             (int64_t*)starts, (int64_t*)ends, ds, de, scratch, st);
     if (tier == TIER_I64)
         return decode_enc_typed<C, int64_t, u64, CONST>(
-            c, excs, slots, (const int64_t*)bases, lens, ns, rows, cap, ce,
+            blk, (const int64_t*)bases, lens, ns, rows, cap, ce,
             (int64_t*)starts, (int64_t*)ends, ds, de, scratch, st);
     return (int)cudaErrorInvalidValue;
 }
@@ -969,26 +1196,22 @@ int sweep_scan_typed(const P* pos, const int32_t* delta, int64_t n,
                      int32_t min_dep, int wrap18, P pmax,
                      int32_t* depth, int64_t* c_cov, int64_t* c_sum,
                      int64_t* scratch, cudaStream_t st) {
-    const int64_t nblk = (n + TILE - 1) / TILE;
-    u64* cov_tot = reinterpret_cast<u64*>(scratch);
-    u64* sum_tot = cov_tot + nblk;
-    uint32_t* dtot = reinterpret_cast<uint32_t*>(sum_tot + nblk);
-    delta_block_totals_kernel<<<(unsigned int)nblk, THREADS, 0, st>>>(
-        delta, n, dtot);
-    exclusive_scan_one_block<uint32_t><<<1, TOTALS_THREADS, 0, st>>>(
-        dtot, nblk);
-    scan_depth_kernel<P><<<(unsigned int)nblk, THREADS, 0, st>>>(
-        pos, delta, n, dtot, min_dep, wrap18, pmax, depth,
+    const int64_t ntiles = (n + SWEEP_TILE - 1) / SWEEP_TILE;
+    const int nv[2] = {1, 2};   // the delta sum, the (cov, sum) pair
+    unsigned* counter;
+    Lookback stages[2];
+    int64_t zeroed;
+    carve_lookback(scratch, ntiles, 2, nv, &counter, stages, &zeroed);
+    static std::atomic<u64> smem_set{0};
+    cudaError_t err = allow_smem(sweep_scan_kernel<P>, SWEEP_SMEM, smem_set);
+    if (err != cudaSuccess) return (int)err;
+    err = cudaMemsetAsync(scratch, 0, 8 * zeroed, st);
+    if (err != cudaSuccess) return (int)err;
+    sweep_scan_kernel<P>
+        <<<(unsigned int)ntiles, SWEEP_THREADS, SWEEP_SMEM, st>>>(
+        pos, delta, n, min_dep, wrap18, pmax, depth,
         reinterpret_cast<u64*>(c_cov), reinterpret_cast<u64*>(c_sum),
-        cov_tot, sum_tot);
-    exclusive_scan_one_block<u64><<<1, TOTALS_THREADS, 0, st>>>(cov_tot,
-                                                                nblk);
-    exclusive_scan_one_block<u64><<<1, TOTALS_THREADS, 0, st>>>(sum_tot,
-                                                                nblk);
-    add_carry_kernel<<<(unsigned int)((n + THREADS - 1) / THREADS),
-                       THREADS, 0, st>>>(
-        n, cov_tot, sum_tot, reinterpret_cast<u64*>(c_cov),
-        reinterpret_cast<u64*>(c_sum));
+        counter, stages[0], stages[1]);
     return (int)cudaGetLastError();
 }
 
@@ -996,9 +1219,28 @@ int sweep_scan_typed(const P* pos, const int32_t* delta, int64_t n,
 
 extern "C" {
 
-// Elements per scan block; the wrapper sizes sweep_scan's scratch as
-// 3 * ceil(n / pdt_sweep_scan_tile()) int64 words.
-int64_t pdt_sweep_scan_tile(void) { return TILE; }
+// Elements per block of the multi-pass scans (extract_events,
+// shard_carry), from which their wrappers size their scratch.
+int64_t pdt_scan_tile(void) { return TILE; }
+
+// Events per tile of sweep_scan, slots per tile of decode_enc.
+int64_t pdt_sweep_scan_tile(void) { return SWEEP_TILE; }
+int64_t pdt_decode_enc_tile(void) { return DEC_TILE; }
+
+// The int64 words of scratch that sweep_scan takes for n events, and
+// decode_enc for a block of rows x cap slots: tile counter, status words
+// and look-back slots.
+int64_t pdt_sweep_scan_scratch(int64_t n) {
+    const int nv[2] = {1, 2};
+    return carve_lookback(nullptr, (n + SWEEP_TILE - 1) / SWEEP_TILE, 2, nv,
+                          nullptr, nullptr, nullptr);
+}
+
+int64_t pdt_decode_enc_scratch(int64_t rows, int64_t cap) {
+    const int nv[1] = {1};
+    return carve_lookback(nullptr, rows * ((cap + DEC_TILE - 1) / DEC_TILE),
+                          1, nv, nullptr, nullptr, nullptr);
+}
 
 int pdt_pack_events(int device, int tier, const void* starts,
                     const void* ends, int64_t m, void* pos,
@@ -1089,7 +1331,7 @@ int pdt_eval_boundaries(int device, int pos64, const void* pos,
     return (int)cudaGetLastError();
 }
 
-// scratch: m + n + ceil(m / pdt_sweep_scan_tile()) int64 words (each op's
+// scratch: m + n + ceil(m / pdt_scan_tile()) int64 words (each op's
 // prefix, each read's base, the block totals). ev_pos is int64 when pos64
 // is set, else int32. Dead slots hold 1 << 62, and every position is then
 // clamped to at most `sentinel` (1 << 62 gives JAX's extract_events).
@@ -1131,49 +1373,60 @@ int pdt_extract_events(int device, const int32_t* tid, const int32_t* pos,
     return (int)cudaGetLastError();
 }
 
-// K8 on one stacked block of `rows` windows of `cap` slots: codes are
-// (rows, 2, cap) in the mixed format (plane 0 the zigzag start deltas,
-// plane 1 the lengths) or (rows, cap) with `lens` and `ns` per row in
-// the const format; uint8 or, with code16, uint16. excs/slots are
-// (rows, 2, ce) or (rows, ce). bases and the outputs are the tier's
-// words. Row r's starts go to starts[r * cap ...], its ends to
-// ends[r * cap ...], +1 to ds and -1 to de at the same slots. scratch:
-// rows * ceil(cap / pdt_sweep_scan_tile()) int64 words.
+// K8 on a group of `nblocks` (1..pdt_decode_enc_max_blocks()) stacked
+// blocks of windows of `cap` slots, block b of block_rows[b] windows:
+// codes[b] are (rows, 2, cap) in the mixed format (plane 0 the zigzag
+// start deltas, plane 1 the lengths) or (rows, cap) with `lens` and `ns`
+// per group row in the const format; uint8 or, with code16, uint16.
+// excs[b]/slots[b] are (rows, 2, ce) or (rows, ce). bases and the outputs
+// are the tier's words. The group's row g (counted through the blocks in
+// order) has its starts at starts[g * cap ...] and its ends at
+// ends[g * cap ...], +1 in ds and -1 in de at the same slots. scratch:
+// pdt_decode_enc_scratch(sum of block_rows, cap) int64 words.
+int64_t pdt_decode_enc_max_blocks(void) { return DEC_MAX_BLOCKS; }
+
 int pdt_decode_enc(int device, int tier, int code16, int is_const,
-                   const void* codes, const int64_t* excs,
-                   const int32_t* slots, const void* bases,
-                   const int32_t* lens, const int32_t* ns, int64_t rows,
-                   int64_t cap, int64_t ce, void* starts, void* ends,
-                   int32_t* ds, int32_t* de, int64_t* scratch,
-                   void* stream) {
+                   int nblocks, const void* const* codes,
+                   const int64_t* const* excs, const int32_t* const* slots,
+                   const int64_t* block_rows, const void* bases,
+                   const int32_t* lens, const int32_t* ns, int64_t cap,
+                   int64_t ce, void* starts, void* ends, int32_t* ds,
+                   int32_t* de, int64_t* scratch, void* stream) {
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return (int)err;
+    if (nblocks < 1 || nblocks > DEC_MAX_BLOCKS)
+        return (int)cudaErrorInvalidValue;
+    int64_t rows = 0;
+    for (int b = 0; b < nblocks; ++b) rows += block_rows[b];
     if (rows <= 0 || cap <= 0) return (int)cudaGetLastError();
-    if (rows > 65535) return (int)cudaErrorInvalidValue;  // grid.y
+    if (rows * ((cap + DEC_TILE - 1) / DEC_TILE) > UINT32_MAX)
+        return (int)cudaErrorInvalidValue;   // tile ids are 32-bit
     cudaStream_t st = (cudaStream_t)stream;
     if (code16)
         return is_const
-            ? decode_enc_tier<uint16_t, true>(tier, codes, excs, slots, bases,
-                                              lens, ns, rows, cap, ce, starts,
-                                              ends, ds, de, scratch, st)
-            : decode_enc_tier<uint16_t, false>(tier, codes, excs, slots,
-                                               bases, lens, ns, rows, cap, ce,
-                                               starts, ends, ds, de, scratch,
-                                               st);
+            ? decode_enc_tier<uint16_t, true>(tier, nblocks, codes, excs,
+                                              slots, block_rows, bases, lens,
+                                              ns, cap, ce, starts, ends, ds,
+                                              de, scratch, st)
+            : decode_enc_tier<uint16_t, false>(tier, nblocks, codes, excs,
+                                               slots, block_rows, bases, lens,
+                                               ns, cap, ce, starts, ends, ds,
+                                               de, scratch, st);
     return is_const
-        ? decode_enc_tier<uint8_t, true>(tier, codes, excs, slots, bases,
-                                         lens, ns, rows, cap, ce, starts,
-                                         ends, ds, de, scratch, st)
-        : decode_enc_tier<uint8_t, false>(tier, codes, excs, slots, bases,
-                                          lens, ns, rows, cap, ce, starts,
-                                          ends, ds, de, scratch, st);
+        ? decode_enc_tier<uint8_t, true>(tier, nblocks, codes, excs, slots,
+                                         block_rows, bases, lens, ns, cap, ce,
+                                         starts, ends, ds, de, scratch, st)
+        : decode_enc_tier<uint8_t, false>(tier, nblocks, codes, excs, slots,
+                                          block_rows, bases, lens, ns, cap,
+                                          ce, starts, ends, ds, de, scratch,
+                                          st);
 }
 
 // K9's carry on one device's (rows, width) block: pos is int64 when pos64
 // is set, else int32; bounds holds at least `rows` range starts; left the
 // n_left int64 totals of the rows on earlier devices (none: 0). Writes
 // totals[rows] and slot 0 of every row. scratch: rows *
-// ceil((width - 1) / pdt_sweep_scan_tile()) int64 words.
+// ceil((width - 1) / pdt_scan_tile()) int64 words.
 int pdt_shard_carry(int device, int pos64, void* pos, int32_t* delta,
                     int64_t rows, int64_t width, const int64_t* bounds,
                     const int64_t* left, int64_t n_left, int64_t* totals,

@@ -21,7 +21,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -95,8 +95,12 @@ def library() -> ctypes.CDLL:
             return _lib
         lib = ctypes.CDLL(str(build()))
         vp, i32, i64 = ctypes.c_void_p, ctypes.c_int32, ctypes.c_int64
-        lib.pdt_sweep_scan_tile.restype = i64
-        lib.pdt_sweep_scan_tile.argtypes = []
+        lib.pdt_scan_tile.restype = i64
+        lib.pdt_scan_tile.argtypes = []
+        for name in ("pdt_sweep_scan_scratch", "pdt_decode_enc_scratch"):
+            getattr(lib, name).restype = i64
+        lib.pdt_sweep_scan_scratch.argtypes = [i64]
+        lib.pdt_decode_enc_scratch.argtypes = [i64, i64]
         lib.pdt_pack_events.restype = ctypes.c_int
         lib.pdt_pack_events.argtypes = [ctypes.c_int, ctypes.c_int, vp, vp,
                                         i64, vp, vp, vp]
@@ -119,9 +123,9 @@ def library() -> ctypes.CDLL:
                                            vp, vp]
         lib.pdt_decode_enc.restype = ctypes.c_int
         lib.pdt_decode_enc.argtypes = [ctypes.c_int, ctypes.c_int,
-                                       ctypes.c_int, ctypes.c_int, vp, vp,
-                                       vp, vp, vp, vp, i64, i64, i64, vp,
-                                       vp, vp, vp, vp, vp]
+                                       ctypes.c_int, ctypes.c_int,
+                                       ctypes.c_int, vp, vp, vp, vp, vp, vp,
+                                       vp, i64, i64, vp, vp, vp, vp, vp, vp]
         lib.pdt_shard_carry.restype = ctypes.c_int
         lib.pdt_shard_carry.argtypes = [ctypes.c_int, ctypes.c_int, vp, vp,
                                         i64, i64, vp, vp, i64, vp, vp, vp]
@@ -129,7 +133,9 @@ def library() -> ctypes.CDLL:
         lib.pdt_eval_pair_rows.argtypes = [ctypes.c_int, ctypes.c_int, vp,
                                            vp, vp, vp, i64, i64, vp, i32,
                                            vp, vp, i64, vp, vp, vp]
-        for name in ("pdt_bucket_tile", "pdt_bucket_max_world"):
+        for name in ("pdt_bucket_tile", "pdt_bucket_max_world",
+                     "pdt_sweep_scan_tile", "pdt_decode_enc_tile",
+                     "pdt_decode_enc_max_blocks"):
             getattr(lib, name).restype = i64
             getattr(lib, name).argtypes = []
         lib.pdt_bucket_events.restype = ctypes.c_int
@@ -223,8 +229,8 @@ def sweep_scan(pos_s: torch.Tensor, delta_s: torch.Tensor, min_dep: int,
                              "shape or device")
     if n:
         lib = library()
-        nblk = -(-n // lib.pdt_sweep_scan_tile())
-        scratch = torch.empty(3 * nblk, dtype=torch.int64, device=dev)
+        scratch = torch.empty(lib.pdt_sweep_scan_scratch(n),
+                              dtype=torch.int64, device=dev)
         _check("sweep_scan", lib.pdt_sweep_scan(
             pos_s.get_device(), pos64, _p(pos_s), _p(delta_s), n,
             int(min_dep), int(bool(wrap18)), int(pos_max), _p(depth),
@@ -322,7 +328,7 @@ def extract_events(tid: torch.Tensor, pos: torch.Tensor, flag: torch.Tensor,
     ev_delta = torch.empty(2 * m, dtype=torch.int32, device=dev)
     if m:
         lib = library()
-        nblk = -(-m // lib.pdt_sweep_scan_tile())
+        nblk = -(-m // lib.pdt_scan_tile())
         scratch = torch.empty(m + n + nblk, dtype=torch.int64, device=dev)
         _check("extract_events", lib.pdt_extract_events(
             tid.get_device(), _p(tid), _p(pos), _p(flag), _p(mapq), n,
@@ -338,77 +344,104 @@ def _word(tier: int) -> torch.dtype:
     return torch.int32 if tier == TIER_I32 else torch.int64
 
 
-def decode_enc(codes: torch.Tensor, excs: torch.Tensor, slots: torch.Tensor,
+def decode_enc(codes: Sequence[torch.Tensor],
+               excs: Sequence[torch.Tensor], slots: Sequence[torch.Tensor],
                bases: torch.Tensor, lens: Optional[torch.Tensor],
                ns: Optional[torch.Tensor], tier: int, pos: torch.Tensor,
                delta: torch.Tensor, s_off: int, e_off: int) -> None:
-    """K8 on one stacked block of B windows, written in place into the
-    event buffer ``pos``/``delta``: row r's CAP starts at
-    ``pos[s_off + r * CAP:]`` and its ends at ``pos[e_off + r * CAP:]``,
-    with +1 and -1 at the same slots of ``delta``.
+    """K8 on a group of stacked blocks of windows, written in place into
+    the event buffer ``pos``/``delta``: the group's row g (counted through
+    the blocks in order) has its CAP starts at ``pos[s_off + g * CAP:]``
+    and its ends at ``pos[e_off + g * CAP:]``, with +1 and -1 at the same
+    slots of ``delta``. One launch for every ``pdt_decode_enc_max_blocks()``
+    blocks.
 
-    ``codes`` is (B, 2, CAP) in the mixed format or (B, CAP) in the const
-    format (then ``lens`` and ``ns`` are (B,) int32), uint8, or uint16
-    carried as its int16 bits; ``excs`` (int64) and ``slots`` (int32) are
-    (B, 2, CE) or (B, CE); ``bases`` and ``pos`` are the tier's words."""
-    const = codes.dim() == 2
+    Each block of ``codes`` is (B, 2, CAP) in the mixed format or (B, CAP)
+    in the const format (then ``lens`` and ``ns`` are (rows,) int32 over
+    the whole group), uint8, or uint16 carried as its int16 bits; its
+    ``excs`` (int64) and ``slots`` (int32) are (B, 2, CE) or (B, CE);
+    ``bases`` ((rows,)) and ``pos`` are the tier's words."""
+    if not codes or not (len(codes) == len(excs) == len(slots)):
+        raise ValueError("decode_enc: needs as many code, escape and slot "
+                         "blocks, at least one")
+    const = codes[0].dim() == 2
     word = _word(tier)
-    if codes.dtype not in (torch.uint8, torch.int16):
+    dt = codes[0].dtype
+    if dt not in (torch.uint8, torch.int16):
         raise ValueError(f"decode_enc: codes must be uint8 or int16 (uint16 "
-                         f"bits), got {codes.dtype}")
-    shape = tuple(codes.shape)
+                         f"bits), got {dt}")
+    shape = tuple(codes[0].shape)
     if const != (lens is not None) or const != (ns is not None) \
-            or not (const or (codes.dim() == 3 and shape[1] == 2)):
+            or not (const or (codes[0].dim() == 3 and shape[1] == 2)):
         raise ValueError(f"decode_enc: codes of shape {shape} need lens "
                          f"and ns exactly in the const format")
-    rows, cap = shape[0], shape[-1]
-    ce = excs.shape[-1]
-    if tuple(excs.shape) != shape[:-1] + (ce,) \
-            or slots.shape != excs.shape or tuple(bases.shape) != (rows,) \
-            or (const and (tuple(lens.shape) != (rows,)
-                           or tuple(ns.shape) != (rows,))):
-        raise ValueError("decode_enc: inconsistent block shapes")
-    for name, t, dt in (("codes", codes, codes.dtype),
-                        ("excs", excs, torch.int64),
-                        ("slots", slots, torch.int32),
-                        ("bases", bases, word),
-                        *((("lens", lens, torch.int32),
-                           ("ns", ns, torch.int32)) if const else ())):
-        if t.device.type != "cuda" or t.dtype != dt \
+    cap, ce = shape[-1], excs[0].shape[-1]
+    rows = sum(c.shape[0] for c in codes)
+    blocks = list(zip(codes, excs, slots))
+    for c, e, sl in blocks:
+        b = c.shape[0]
+        if tuple(c.shape[1:]) != shape[1:] \
+                or tuple(e.shape) != (b,) + shape[1:-1] + (ce,) \
+                or sl.shape != e.shape:
+            raise ValueError("decode_enc: inconsistent block shapes")
+    if tuple(bases.shape) != (rows,) or (const and (
+            tuple(lens.shape) != (rows,) or tuple(ns.shape) != (rows,))):
+        raise ValueError("decode_enc: bases, lens or ns do not have one "
+                         "entry per row of the group")
+    for name, t, want in (
+            *(("codes", c, dt) for c, _, _ in blocks),
+            *(("excs", e, torch.int64) for _, e, _ in blocks),
+            *(("slots", sl, torch.int32) for _, _, sl in blocks),
+            ("bases", bases, word),
+            *((("lens", lens, torch.int32),
+               ("ns", ns, torch.int32)) if const else ())):
+        if t.device.type != "cuda" or t.dtype != want \
                 or not t.is_contiguous():
             raise ValueError(f"decode_enc: {name} must be a contiguous "
-                             f"{dt} CUDA tensor, got {t.dtype} on "
+                             f"{want} CUDA tensor, got {t.dtype} on "
                              f"{t.device}")
     _require("decode_enc", pos, word)
     _require("decode_enc", delta, torch.int32)
-    _one_device("decode_enc", codes, excs, slots, bases, pos, delta)
+    _one_device("decode_enc", bases, pos, delta,
+                *(t for blk in blocks for t in blk))
     n = rows * cap
     if delta.shape != pos.shape or min(s_off, e_off) < 0 \
             or max(s_off, e_off) + n > pos.shape[0] \
             or abs(s_off - e_off) < n:
-        raise ValueError("decode_enc: the block's start and end slots do "
+        raise ValueError("decode_enc: the group's start and end slots do "
                          "not fit the event buffer apart")
-    if rows > 65535:
-        raise ValueError(f"decode_enc: {rows} rows in one block (at most "
-                         f"65535)")
     if n == 0:
         return
     lib = library()
-    ntiles = -(-cap // lib.pdt_sweep_scan_tile())
-    scratch = torch.empty(rows * ntiles, dtype=torch.int64,
-                          device=pos.device)
+    most = lib.pdt_decode_enc_max_blocks()
     ps, pd = pos.element_size(), delta.element_size()
     none = ctypes.c_void_p(0)
-    _check("decode_enc", lib.pdt_decode_enc(
-        pos.get_device(), tier, int(codes.dtype == torch.int16), int(const),
-        _p(codes), _p(excs), _p(slots), _p(bases),
-        _p(lens) if const else none, _p(ns) if const else none, rows, cap,
-        ce, ctypes.c_void_p(pos.data_ptr() + s_off * ps),
-        ctypes.c_void_p(pos.data_ptr() + e_off * ps),
-        ctypes.c_void_p(delta.data_ptr() + s_off * pd),
-        ctypes.c_void_p(delta.data_ptr() + e_off * pd), _p(scratch),
-        _stream(pos)))
-    launches["decode_enc"] += 1
+    r0 = 0
+    for k in range(0, len(blocks), most):
+        part = blocks[k:k + most]
+        nb = len(part)
+        part_rows = sum(c.shape[0] for c, _, _ in part)
+        sub = slice(r0, r0 + part_rows)
+        scratch = torch.empty(lib.pdt_decode_enc_scratch(part_rows, cap),
+                              dtype=torch.int64, device=pos.device)
+        vp = ctypes.c_void_p * nb
+        s0, e0 = s_off + r0 * cap, e_off + r0 * cap
+        _check("decode_enc", lib.pdt_decode_enc(
+            pos.get_device(), tier, int(dt == torch.int16), int(const), nb,
+            vp(*(c.data_ptr() for c, _, _ in part)),
+            vp(*(e.data_ptr() for _, e, _ in part)),
+            vp(*(sl.data_ptr() for _, _, sl in part)),
+            (ctypes.c_int64 * nb)(*(c.shape[0] for c, _, _ in part)),
+            ctypes.c_void_p(bases[sub].data_ptr()),
+            ctypes.c_void_p(lens[sub].data_ptr()) if const else none,
+            ctypes.c_void_p(ns[sub].data_ptr()) if const else none,
+            cap, ce, ctypes.c_void_p(pos.data_ptr() + s0 * ps),
+            ctypes.c_void_p(pos.data_ptr() + e0 * ps),
+            ctypes.c_void_p(delta.data_ptr() + s0 * pd),
+            ctypes.c_void_p(delta.data_ptr() + e0 * pd), _p(scratch),
+            _stream(pos)))
+        launches["decode_enc"] += 1
+        r0 += part_rows
 
 
 def _require_rows(name: str, t: torch.Tensor, dtype: torch.dtype,
@@ -445,7 +478,7 @@ def shard_carry(pos2d: torch.Tensor, delta2d: torch.Tensor,
     totals = torch.empty(rows, dtype=torch.int64, device=pos2d.device)
     if rows:
         lib = library()
-        ntiles = -(-(width - 1) // lib.pdt_sweep_scan_tile())
+        ntiles = -(-(width - 1) // lib.pdt_scan_tile())
         scratch = torch.empty(rows * ntiles, dtype=torch.int64,
                               device=pos2d.device)
         _check("shard_carry", lib.pdt_shard_carry(

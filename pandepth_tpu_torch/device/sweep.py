@@ -309,19 +309,15 @@ def _group_rows(group) -> Tuple[int, int]:
 
 def _decode_into(group, tier: int, pos: torch.Tensor, delta: torch.Tensor,
                  off: int) -> int:
-    """A group's starts then ends, through the K8 kernel block by block,
-    into pos/delta from ``off``; returns the offset after them."""
+    """A group's starts then ends, through the K8 kernel (one launch for
+    all its blocks), into pos/delta from ``off``; returns the offset after
+    them."""
     const = len(group) == 6
     rows, cap = _group_rows(group)
-    r0 = 0
-    for i, codes in enumerate(group[0]):
-        b = codes.shape[0]
-        sl = slice(r0, r0 + b)
-        kernels.decode_enc(codes, group[1][i], group[2][i], group[3][sl],
-                           group[4][sl] if const else None,
-                           group[5][sl] if const else None, tier, pos,
-                           delta, off + r0 * cap, off + (rows + r0) * cap)
-        r0 += b
+    kernels.decode_enc(group[0], group[1], group[2], group[3],
+                       group[4] if const else None,
+                       group[5] if const else None, tier, pos, delta, off,
+                       off + rows * cap)
     return off + 2 * rows * cap
 
 

@@ -23,6 +23,7 @@ from __future__ import annotations
 
 import os
 import sys
+import traceback
 from typing import Dict, Iterator, List, NamedTuple, Optional, Sequence, \
     Tuple
 
@@ -457,7 +458,10 @@ def finalize_and_write(config: RunConfig, st: Staged,
 def run(config: RunConfig, device, share: Optional[Share] = None) -> int:
     """The whole run on ``device`` (one device or a sequence of them), of
     ``share`` of the input files on a rank of a multi-process job (see
-    :func:`stage`); returns the exit code."""
+    :func:`stage`); returns the exit code. On a rank, staging that fails
+    in any way (a refusal, a native feed error, an exception) does not
+    leave the run alone: the ranks first agree on the worst exit code,
+    and every rank returns non-zero when any rank failed."""
     if not config.inputs or not config.out_prefix:
         print("Error: lack argument -i or -o ", file=sys.stderr)
         return 1
@@ -472,15 +476,38 @@ def run(config: RunConfig, device, share: Optional[Share] = None) -> int:
     elif is_paf(config.inputs[0]):
         print("INFO: Run paf Format data ")
     stats = RunStats()
+    rc = 0
     try:
         st = stage(config, device, stats, share)
     except Unported as e:
         print(f"Error: pandepth_tpu_torch does not run {e} yet",
               file=sys.stderr)
-        return 2
+        rc = 2
     except NativeFeedError as e:
         print(f"Error: {e}", file=sys.stderr)
-        return 1
+        rc = 1
+    except Exception as e:
+        if share is None:
+            raise
+        # a rank of a job must still meet the others at the decision below
+        traceback.print_exc()
+        print(f"Error: this rank's share of the inputs "
+              f"({', '.join(p for _, p in share)}) did not stage: "
+              f"{type(e).__name__}: {e}", file=sys.stderr)
+        rc = 1
+    if share is not None:
+        # the job's first collective: every rank stages, then all of them
+        # go on, or all of them stop and none writes a table
+        from pandepth_tpu_torch.sharding.distributed import worst_exit
+
+        worst = worst_exit(rc, devices_of(device)[0])
+        if worst and not rc:
+            print(f"Error: another rank of the job failed to stage its "
+                  f"share (exit code {worst}); no table is written",
+                  file=sys.stderr)
+        rc = rc or worst
+    if rc:
+        return rc
     print("INFO: Input data read done")
     stats.reads_seen = st.engine.n_reads_seen
     with phase(stats, "stats+write"):

@@ -113,6 +113,16 @@ def process_read_shard(paths: Sequence[str],
     return [(k, p) for k, p in enumerate(paths) if k % pc == pi]
 
 
+def worst_exit(rc: int, device: torch.device, group=None) -> int:
+    """The largest of the ranks' exit codes ``rc`` (0 when every rank
+    succeeded): one ``all_reduce(MAX)`` on ``device``, which every rank
+    calls, whatever its own outcome, so that a rank-local failure ends the
+    whole job together instead of leaving the others in a collective."""
+    flag = torch.tensor([int(rc)], dtype=torch.int64, device=device)
+    dist.all_reduce(flag, op=dist.ReduceOp.MAX, group=group)
+    return int(flag.item())
+
+
 def agree(group, device: torch.device, fields: Dict[str, int]) -> None:
     """Raise on every rank unless every rank passes the same ``fields``
     (the world size, the layout, the range cuts, the run's decisions) as

@@ -167,6 +167,131 @@ def enc_placeholder(code_dt, pos_dt, const: bool):
 
 
 # ---------------------------------------------------------------------
+# the edges of the look-back scans (sweep_scan and decode_enc)
+
+#: events per tile of the sweep_scan kernel and slots per tile of the
+#: decode_enc kernel (SWEEP_TILE and DEC_TILE of csrc/sweep_kernels.cu;
+#: chip_smoke.py holds them to the built library's)
+SWEEP_TILE = 8192
+DEC_TILE = 4096
+
+#: each position tier's numpy dtype and the span its positions cover
+TIER_SPANS = ((np.int32, 2_000_000_000), (np.uint32, 4_200_000_000),
+              (np.int64, 17_000_000_000))
+
+
+def sweep_edge_events(seed: int = 0):
+    """The sweep scan's look-back edges as (name, pos, delta, pos dtype,
+    min_dep, wrap18): int64 position values of the tier (sentinel slots
+    at the tier's max with delta 0) in seeded order, int32 deltas. On
+    every tier: 1, a tile - 1, a tile, a tile + 1 and a few tiles of
+    events (min_dep 1 and 3, wrap18 off and on), a delta carry whose
+    uint32 sum passes 2^32 many times, and a wrap18 pileup past 2^18
+    across a tile boundary; on the int64 tier, c_sum past 2^64."""
+    rng = np.random.RandomState(seed)
+    t = SWEEP_TILE
+    cases = []
+    for pos_dt, span in TIER_SPANS:
+        sentinel = int(np.iinfo(pos_dt).max)
+        tier = np.dtype(pos_dt).name
+        for k, n in enumerate((1, t - 1, t, t + 1, 5 * t + 17)):
+            pos = rng.randint(0, span, n).astype(np.int64)
+            pos[:n // 7] = pos[0]                          # duplicates
+            delta = rng.choice([-1, 1, 1, 2], n).astype(np.int32)
+            tail = n // 9                                  # sentinel tail
+            if tail:
+                pos[-tail:], delta[-tail:] = sentinel, 0
+            cases.append((f"{tier} {n} events", pos, delta, pos_dt,
+                          1 + 2 * (k % 2), bool(k % 2)))
+        n = 3 * t + 5
+        pos = rng.randint(0, span, n).astype(np.int64)
+        delta = rng.randint(1 << 29, 1 << 30, n).astype(np.int32)
+        cases.append((f"{tier} carry past 2^32", pos, delta, pos_dt, 1,
+                      False))
+        # 17 events of +40,000 at sorted slots t - 8 .. t + 8, 17 of
+        # -40,000 after them
+        p0 = span // 2
+        below = rng.randint(0, p0, t - 8)
+        above = rng.randint(p0 + 400, span, t + 25)
+        pos = np.concatenate([below, np.full(17, p0), np.full(17, p0 + 333),
+                              above]).astype(np.int64)
+        delta = np.concatenate([rng.choice([-1, 1], t - 8),
+                                np.full(17, 40_000), np.full(17, -40_000),
+                                rng.choice([-1, 1], t + 25)]).astype(np.int32)
+        perm = rng.permutation(pos.shape[0])
+        for min_dep in (1, 3):
+            cases.append((f"{tier} wrap18 pileup across a tile boundary",
+                          pos[perm], delta[perm], pos_dt, min_dep, True))
+    # depth near 2^31 over 1.7e10 positions: c_sum wraps past 2^64
+    n = 2 * t + 3
+    pos = np.sort(rng.randint(0, 17_000_000_000, n)).astype(np.int64)
+    delta = np.resize(np.array([-1, 1], np.int32), n)
+    delta[0] = (1 << 31) - 9
+    perm = rng.permutation(n)
+    cases.append(("int64 c_sum past 2^64", pos[perm], delta[perm], np.int64,
+                  1, False))
+    return cases
+
+
+def enc_edge_groups(pos_dt, seed: int = 0):
+    """decode_enc's look-back edges as finalize_encoded operand groups
+    (numpy, JAX's layout), as (name, group): for each code width and
+    format, blocks of 3 and 1 rows of CAP = 3 * DEC_TILE + 5 slots and 24
+    escape entries per plane. The entries name the first and last slot of
+    every tile, in no order, two of them twice (they add), and CAP and
+    past it (dropped; unused entries hold CAP); one row's list is full;
+    the const rows have ns = 0, ns = CAP and two between."""
+    rng = np.random.RandomState(seed)
+    t, cap, ce = DEC_TILE, 3 * DEC_TILE + 5, 24
+    span = dict(TIER_SPANS)[pos_dt]
+    edges = np.array([0, t - 1, t, 2 * t - 1, 2 * t, 3 * t - 1, 3 * t,
+                      cap - 1, t, 2 * t], np.int32)
+
+    def entry_list(full: bool):
+        if full:
+            return rng.randint(0, cap, ce).astype(np.int32)
+        s = np.full(ce, cap, np.int32)
+        s[:edges.shape[0]] = edges
+        s[edges.shape[0]:edges.shape[0] + 3] = [cap + 3, cap, cap + 70]
+        return s[rng.permutation(ce)]
+
+    out = []
+    for code_dt in (np.uint8, np.uint16):
+        esc = int(np.iinfo(code_dt).max)
+        for const in (False, True):
+            codes, excs, slots, bases, lens, ns = [], [], [], [], [], []
+            for rows in (3, 1):
+                c = rng.randint(0, 200, (rows, cap) if const
+                                else (rows, 2, cap)).astype(code_dt)
+                e = np.zeros((rows, ce) if const else (rows, 2, ce),
+                             np.int64)
+                s = np.zeros(e.shape, np.int32)
+                for r in range(rows):
+                    full = len(bases) % 4 == 1
+                    planes = ((c[r], e[r], s[r]),) if const else \
+                        ((c[r, 0], e[r, 0], s[r, 0]),
+                         (c[r, 1], e[r, 1], s[r, 1]))
+                    for p, (cp, ep, sp) in enumerate(planes):
+                        sp[:] = entry_list(full)
+                        cp[sp[sp < cap]] = esc
+                        ep[:] = rng.randint(-5_000_000, 5_000_000, ce) \
+                            if p == 0 else rng.randint(esc, esc + 5000, ce)
+                    bases.append(int(rng.randint(10_000, span - 100_000)))
+                    lens.append(int(rng.randint(1, 400)))
+                    ns.append([0, cap, 777, t][len(ns) % 4])
+                codes.append(c)
+                excs.append(e)
+                slots.append(s)
+            g = (tuple(codes), tuple(excs), tuple(slots),
+                 np.array(bases, np.int64).astype(pos_dt))
+            if const:
+                g += (np.array(lens, np.int32), np.array(ns, np.int32))
+            out.append((f"{np.dtype(code_dt).name} "
+                        f"{'const' if const else 'mixed'}", g))
+    return out
+
+
+# ---------------------------------------------------------------------
 # the golden fixtures (tests/fixtures.py)
 
 CONTIGS = [("chr1", 5000), ("chr2", 3200), ("ctgM", 700)]

@@ -22,7 +22,8 @@ from pandepth_tpu_torch.device.convert import (codes_to_torch,
                                                enc_group_from_numpy,
                                                positions_to_words,
                                                state_to_numpy)
-from pandepth_tpu_torch.synth import enc_group, enc_placeholder
+from pandepth_tpu_torch.synth import (enc_edge_groups, enc_group,
+                                     enc_placeholder)
 
 # the position tiers: numpy dtype and the genome span their windows cover
 TIERS = {"int32": (np.int32, 2_000_000_000),
@@ -117,6 +118,34 @@ def test_finalize_encoded_matches_jax(tier, wrap18, min_dep):
     assert int(got[0].sum()) > 0
 
 
+@pytest.mark.parametrize("kind", ["uint8 mixed", "uint8 const",
+                                  "uint16 mixed", "uint16 const"])
+@pytest.mark.parametrize("tier", sorted(TIERS))
+def test_decoders_lookback_edges_match_jax(tier, kind):
+    """The edges of the decode_enc kernel's tiles (the cases chip_smoke.py
+    holds the kernel to its twin on), each decoder's twin against JAX's
+    ``_decode_enc_group`` / ``_decode_const_group``: escapes on the first
+    and last slot of every tile, unsorted and duplicated entries, entries
+    at CAP and past it, a full list, const rows with ns = 0 and ns = CAP."""
+    pos_dt = TIERS[tier][0]
+    g = dict(enc_edge_groups(pos_dt, seed=3 + len(tier)))[kind]
+    const = len(g) == 6
+    jg = [tuple(jnp.asarray(b) for b in part) if isinstance(part, tuple)
+          else jnp.asarray(part) for part in g]
+    jdec = jsweep._decode_const_group if const else jsweep._decode_enc_group
+    decode = sweep.decode_const_group if const else sweep.decode_enc_group
+    got = decode(*enc_group_from_numpy(g, pos_dt, "cpu"),
+                 pos_max=int(np.iinfo(pos_dt).max))
+    for p, j in zip(got, jdec(*jg)):
+        np.testing.assert_array_equal(p.numpy().astype(np.int64),
+                                      np.asarray(j).astype(np.int64))
+    slots = np.concatenate([s.reshape(-1, s.shape[-1]) for s in g[2]])
+    cap = g[0][0].shape[-1]
+    assert (slots >= cap).any() and (slots < cap).all(axis=1).any()
+    if const:
+        assert {0, cap} <= set(g[5].tolist())
+
+
 @pytest.mark.parametrize("tier", sorted(TIERS))
 def test_finalize_encoded_without_state_matches_jax(tier):
     """want_state off: (cover, dsum) only; JAX's placeholder block for an
@@ -182,3 +211,22 @@ def test_u16_codes_cross_as_int16_bits():
     t = codes_to_torch(c)
     assert t.dtype == torch.int16 and t.numel() * 2 == c.nbytes
     assert (t.to(torch.int64) & 0xFFFF).tolist() == c.tolist()
+
+
+def test_decode_kernel_takes_no_cpu_tensors(monkeypatch):
+    """With the dispatch predicate saying "CUDA", a group of CPU tensors
+    reaches the decode_enc wrapper, which refuses it: no plain fallback,
+    no launch."""
+    from pandepth_tpu_torch.device import kernels
+
+    monkeypatch.setattr(sweep, "_use_kernel", lambda t: True)
+    rng = np.random.RandomState(2)
+    for const in (False, True):
+        g, _ = _group(rng, np.uint8, np.int32, 2_000_000_000, const)
+        tg = enc_group_from_numpy(g, np.int32, "cpu")
+        decode = sweep.decode_const_group if const \
+            else sweep.decode_enc_group
+        kernels.reset_launches()
+        with pytest.raises(ValueError, match="CUDA tensor"):
+            decode(*tg)
+        assert not any(kernels.launches.values())

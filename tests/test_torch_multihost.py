@@ -722,6 +722,51 @@ def test_unported_flag_exits_2_on_every_rank(jobs):
         assert _out(d, 2, "site", r)["rc"].tolist() == [2]
 
 
+FAIL_SECONDS = 60
+
+
+@pytest.mark.parametrize("bad", ["corrupt_bam", "missing_file"])
+def test_rank_local_failure_exits_every_rank(tmp_path, bad):
+    """A 2-rank gloo job through the launcher whose rank 1 holds a list
+    member it cannot stage (a .bam of garbage bytes, or a path that does
+    not exist): both ranks exit non-zero within FAIL_SECONDS, rank 1 names
+    its file, rank 0 says that another rank failed, and no table is
+    written."""
+    assert native.load_library() is not None   # built before the ranks
+    good = str(tmp_path / "good.bam")
+    make_bam(good, n=300, seed=61)
+    member = str(tmp_path / "bad.bam")
+    if bad == "corrupt_bam":   # gzip's magic, then garbage
+        with open(member, "wb") as fh:
+            fh.write(b"\x1f\x8b" + np.random.RandomState(4).bytes(5000))
+    lst = tmp_path / "in.list"
+    lst.write_text(f"{good}\n{member}\n")
+    env = dict(os.environ, PYTHONPATH=ROOT, OMP_NUM_THREADS="1",
+               GLOO_SOCKET_IFNAME="lo")
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "pandepth_tpu_torch.sharding.launch",
+         "--coordinator", f"file://{tmp_path}/store", "--nprocs", "2",
+         "--rank", str(r), "--backend", "gloo", "--device", "cpu", "-i",
+         str(lst), "-o", str(tmp_path / f"out{r}")], cwd=str(tmp_path),
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for r in range(2)]
+    deadline = time.monotonic() + FAIL_SECONDS
+    while any(p.poll() is None for p in procs) \
+            and time.monotonic() < deadline:
+        time.sleep(0.05)
+    hung = [r for r, p in enumerate(procs) if p.poll() is None]
+    for p in procs:
+        p.kill()
+    errs = [p.communicate()[1] for p in procs]
+    assert not hung, f"ranks {hung} still running after {FAIL_SECONDS} s: " \
+                     + "\n".join(e[-1500:] for e in errs)
+    assert [p.returncode != 0 for p in procs] == [True, True], errs
+    assert member in errs[1], errs[1][-2000:]
+    # rank 0 learns it from the job's decision, not from a torn-down group
+    assert "another rank of the job failed to stage" in errs[0], errs[0]
+    assert not list(tmp_path.glob("*.stat.gz"))
+
+
 def test_process_read_shard_and_init_refusals(monkeypatch):
     """File k goes to rank k mod P, a rank may get none; no CUDA device,
     or NCCL on the CPU, raises before any group is joined."""

@@ -15,6 +15,7 @@ from pandepth_tpu.device import sweep as jsweep
 from pandepth_tpu.device.engine import _pack_events as jax_pack_events
 from pandepth_tpu.device.layout import GenomeLayout
 from pandepth_tpu.io.bam import ReadBatch
+from pandepth_tpu_torch import synth
 from pandepth_tpu_torch.device import convert, events, kernels, sweep
 from pandepth_tpu_torch.device.engine import CoverageEngine
 
@@ -117,6 +118,48 @@ def test_sort_events_matches_jax(tier, wrap18, min_dep):
     assert [t.dtype for t in out[1:]] == [torch.int32, torch.int64,
                                           torch.int64, torch.int32]
     _assert_same(jout, out)
+
+
+SWEEP_EDGES = synth.sweep_edge_events(seed=5)
+
+
+@pytest.mark.parametrize("case", range(len(SWEEP_EDGES)),
+                         ids=[f"{k}-{c[0]}" for k, c in enumerate(SWEEP_EDGES)])
+def test_sort_events_lookback_edges_match_jax(case):
+    """The edges of the sweep_scan kernel's tiles and look-backs (the
+    cases chip_smoke.py holds the kernel to its twin on): event counts
+    around the tile size, a carry past 2^32, a wrap18 pileup across a
+    tile boundary, c_sum past 2^64, min_dep 3."""
+    _, pos, delta, np_dt, min_dep, wrap18 = SWEEP_EDGES[case]
+    jout = jsweep.sort_events(jnp.asarray(pos.astype(np_dt)),
+                              jnp.asarray(delta), min_dep=min_dep,
+                              wrap18=wrap18)
+    out = sweep.sort_events(_dev(pos, np_dt), torch.from_numpy(delta),
+                            min_dep=min_dep, wrap18=wrap18,
+                            pos_max=_sentinel(np_dt))
+    _assert_same(jout, out)
+
+
+def test_sweep_edge_events_reach_their_edges():
+    """Each special case of ``synth.sweep_edge_events`` drives its sums
+    where its name says (exact integer sums of the sorted events)."""
+    t = synth.SWEEP_TILE
+    counts = set()
+    for name, pos, delta, np_dt, _, _ in SWEEP_EDGES:
+        order = np.argsort(pos, kind="stable")
+        run = np.cumsum(delta[order].astype(np.int64))
+        counts.add(pos.shape[0])
+        if "carry" in name:
+            assert run[-1] >= 1 << 34
+        elif "pileup" in name:
+            assert run[t - 1] >= 1 << 18 and run[t] >= 1 << 18
+            assert run[t - 10] < 1 << 18
+        elif "2^64" in name:
+            p = pos[order].astype(object)
+            dep = run[:-1].astype(np.int32).astype(object)
+            # before the last piece, the one against the tier's max
+            assert sum((p[1:] - p[:-1]) * dep * (dep >= 1)) >= 1 << 64
+    assert {1, t - 1, t, t + 1} <= counts
 
 
 def _queries(tier: str, pos: np.ndarray, seed: int):
