@@ -57,22 +57,34 @@ see :func:`worker`.) Phases, one line each; any failure exits non-zero:
             and 1 events and up to 1024 ranges; the time of each beside its
             twin's and its bound; the Python decoder's time per batch;
             the code groups and blocks of each encoded path; the bytes
-            each feed copies to the card and the copies' time. The two
-            single-pass look-back kernels also on the edges of their
-            tiles (pandepth_tpu_torch/synth.py's sweep_edge_events and
-            enc_edge_groups, after holding its tile sizes to the built
-            library's): sweep_scan at 1, a tile - 1, a tile, a tile + 1
-            and a few tiles of events, a carry past 2^32, a wrap18 pileup
-            across a tile boundary, c_sum past 2^64; decode_enc with
-            escapes on each tile's first and last slot, unsorted and
-            duplicated entries, entries at CAP and past it, full lists,
-            const rows of ns = 0 and CAP, and groups of 18 blocks (more
-            than one launch takes); 50 launches of each on the chr
-            path's inputs, every output array-equal to the first and to
-            the twin; the device time of each (torch.profiler) beside
-            its CUDA-event time, with the kernels and memsets a call puts
+            each feed copies to the card and the copies' time. The four
+            chained-scan (look-back) kernels also on the edges of their
+            tiles (pandepth_tpu_torch/synth.py's sweep_edge_events,
+            enc_edge_groups, extract_edge_batches and bucket_edge_events,
+            after holding its tile sizes to the built library's):
+            sweep_scan at 1, a tile - 1, a tile, a tile + 1 and a few
+            tiles of events, a carry past 2^32, a wrap18 pileup across a
+            tile boundary, c_sum past 2^64; decode_enc with escapes on
+            each tile's first and last slot, unsorted and duplicated
+            entries, entries at CAP and past it, full lists, const rows
+            of ns = 0 and CAP, and groups of 18 blocks (more than one
+            launch takes); extract_events at 1, a tile - 1, a tile, a
+            tile + 1 and a few tiles of ops, reads starting on a tile's
+            first and last op, a read of more than three tiles, zero-op
+            reads and JAX's padding at a tile boundary, ref lengths past
+            2^32 across one; bucket_events at 0, 1, a tile - 1, a tile, a
+            tile + 1 and a few tiles of events over 1, 2, 8, 37 and 1024
+            ranges, a destination change on a tile's first and last
+            event, an all-dead tile, a range empty everywhere; 50
+            launches of each on its main path's inputs (the chr path's;
+            extract_events on both CIGAR batches), every output
+            array-equal to the first and to the twin; the device time of
+            each (torch.profiler) beside its CUDA-event time and its
+            host time per call, with the kernels and memsets a call puts
             on the card; torch.cumsum of the chr path's deltas and piece
-            lengths as a yardstick for one of sweep_scan's sums
+            lengths as a yardstick for one of sweep_scan's sums; the
+            card's time per dependent load (one eval_boundaries query on
+            2 and 2^24 events), for the latency-bound kernels' bound
 5. golden   the port's CLI on cuda over the golden fixtures: chr, bed,
             gene and gene_gc from the BAM, native with encoded windows,
             native with raw pairs and with PANDEPTH_NO_NATIVE=1, and chr
@@ -211,11 +223,11 @@ def device_ms(fn, iters: int = 10, tries: int = 3):
     """(device ms per call, kernels per call, memsets per call) of ``fn``
     under torch.profiler after a warm-up call: the sum of the device ops'
     own times, which leaves out the host's gaps between launches. A trace
-    that lost events (a fractional count per call) is taken again, up to
-    ``tries`` times."""
+    that lost events (no kernel, or a fractional count per call) is taken
+    again, up to ``tries`` times."""
     for _ in range(tries):
         got = _device_ms(fn, iters)
-        if got[1] == int(got[1]) and got[2] == int(got[2]):
+        if got[1] >= 1 and got[1] == int(got[1]) and got[2] == int(got[2]):
             break
     return got
 
@@ -243,6 +255,27 @@ def _device_ms(fn, iters: int):
         else:
             kernels += e.count
     return ms / iters, kernels / iters, memsets / iters
+
+
+def host_ms(fn, calls: int = 100, runs: int = 5) -> float:
+    """Host milliseconds per call of ``fn``: a host clock around ``calls``
+    calls with no synchronisation between them (after a warm-up call), the
+    least of ``runs`` such clocks (the host is shared, so a longer one
+    holds other work): what launching costs the host. Where it exceeds
+    the device time, the CUDA-event time of a run of calls is the
+    host's."""
+    import torch
+
+    fn()
+    best = float("inf")
+    for _ in range(runs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        best = min(best, (time.perf_counter() - t0) / calls * 1e3)
+    torch.cuda.synchronize()
+    return best
 
 
 def cuda_ms(fn, iters: int = 10) -> float:
@@ -418,22 +451,26 @@ class KernelCheck:
         self.notes.append(f"{name}: {times} launches on {what}, every "
                           f"output array-equal to the first and the twin")
 
-    def device_note(self, name: str, kernel, what: str) -> None:
+    def device_note(self, name: str, kernel, what: str,
+                    ms: float = None) -> None:
         """The kernel's device time per call beside its CUDA-event time
-        (``ms``), with the launches each call puts on the device."""
+        (``ms``, by default the kernel's JSON entry's) and the host's time
+        per call, with the launches each call puts on the device."""
         dms, nk, nm = device_ms(kernel)
+        hms = host_ms(kernel)
         self.notes.append(f"{name} on {what}: device time {dms:.4f} ms per "
                           f"call (profiler; CUDA events "
-                          f"{self.ms[name]:.4f} ms), {nk:g} kernel(s) and "
-                          f"{nm:g} memset(s) a call")
+                          f"{self.ms[name] if ms is None else ms:.4f} ms, "
+                          f"host {hms:.4f} ms a call unsynchronised), "
+                          f"{nk:g} kernel(s) and {nm:g} memset(s) a call")
 
     def time(self, name: str, kernel, twin, nbytes: int,
-             note: str = "") -> None:
+             note: str = "") -> float:
         """The kernel's and the twin's times, and the bound: the least
         time the card needs to move ``nbytes`` (each input read once, each
         output written once, what this call's data needs) at its memory
         rate. With ``note`` they go to a note line instead of the
-        kernel's JSON entry."""
+        kernel's JSON entry. Returns the kernel's time."""
         ms, plain_ms = cuda_ms(kernel), cuda_ms(twin)
         bound = nbytes / HBM_BYTES_PER_S * 1e3
         if note:
@@ -442,6 +479,7 @@ class KernelCheck:
         else:
             self.ms[name], self.plain_ms[name] = ms, plain_ms
             self.bound_ms[name] = bound
+        return ms
 
     def sweep_case(self, raw_s, raw_e, sentinel: int, lo, hi, min_dep: int,
                    wrap18: bool, what: str, timed: bool = False) -> None:
@@ -527,13 +565,15 @@ class KernelCheck:
         self.compare("extract_events", got, want, what)
         if timed:
             n, m = cols[0].numel(), cols[4].numel()
-            self.time("extract_events",
-                      lambda: kernels.extract_events(*args, sentinel,
-                                                     pos_dtype),
-                      lambda: events.extract_events_reference(
-                          *args, sentinel, pos_dtype),
-                      16 * n + 12 * m + 16 * offsets.numel()
-                      + 2 * m * (got[0].element_size() + 4), note)
+            kernel = lambda: kernels.extract_events(  # noqa: E731
+                *args, sentinel, pos_dtype)
+            self.repeat("extract_events", kernel, want, what)
+            ms = self.time("extract_events", kernel,
+                           lambda: events.extract_events_reference(
+                               *args, sentinel, pos_dtype),
+                           16 * n + 12 * m + 16 * offsets.numel()
+                           + 2 * m * (got[0].element_size() + 4), note)
+            self.device_note("extract_events", kernel, what, ms)
         return got
 
     def decode_cases(self, groups, pos_max: int, what: str,
@@ -619,11 +659,13 @@ def sweep_edge_cases(check: KernelCheck, dev) -> None:
     from pandepth_tpu_torch.device.convert import positions_to_words
 
     lib = kernels.library()
-    tiles = (lib.pdt_sweep_scan_tile(), lib.pdt_decode_enc_tile())
-    if tiles != (synth.SWEEP_TILE, synth.DEC_TILE):
+    tiles = (lib.pdt_sweep_scan_tile(), lib.pdt_decode_enc_tile(),
+             lib.pdt_extract_events_tile(), lib.pdt_bucket_tile())
+    want = (synth.SWEEP_TILE, synth.DEC_TILE, synth.EXTRACT_TILE,
+            synth.BUCKET_TILE)
+    if tiles != want:
         fail("kernels", f"the library's tiles {tiles} are not synth's "
-                        f"{(synth.SWEEP_TILE, synth.DEC_TILE)}: the edge "
-                        f"cases miss the tile boundaries")
+                        f"{want}: the edge cases miss the tile boundaries")
     for name, pos, delta, pos_dt, min_dep, wrap18 in \
             synth.sweep_edge_events(seed=5):
         p = torch.from_numpy(positions_to_words(pos, pos_dt)).to(dev)
@@ -741,11 +783,17 @@ def device_cols(batch, dev):
 def extract_edge_cases(check: KernelCheck, dev) -> None:
     """extract_events on JAX's int64 output and on every engine tier,
     min_mapq -1/0/20, two flag masks, JAX-style padding and a 70,000-op
-    read."""
+    read; then on the edges of its tiles and look-back
+    (``synth.extract_edge_batches``, the cases tests/test_torch_events.py
+    holds the twin to JAX on): 1, a tile - 1, a tile, a tile + 1 and a
+    few tiles of ops, reads starting on a tile's first and last op, a read
+    of more than three tiles, zero-op reads at a tile boundary, JAX's
+    padding across one, ref lengths past 2^32 across one."""
     import numpy as np
     import torch
 
-    from pandepth_tpu_torch.synth import jax_padded, make_batch
+    from pandepth_tpu_torch.synth import (extract_edge_batches, jax_padded,
+                                          make_batch)
 
     tiers = [([5000, 3200, 700], torch.int32, (1 << 31) - 1),
              ([1_900_000_000, 1_500_000_000], torch.int64, (1 << 32) - 1),
@@ -770,6 +818,13 @@ def extract_edge_cases(check: KernelCheck, dev) -> None:
                             f"lengths={lengths} n={n} long={long_ops} "
                             f"pad={pad} q={min_mapq} x={mask} "
                             f"sentinel={sentinel}")
+        for name, b in extract_edge_batches(lengths, seed=seed):
+            cols = device_cols(b, dev)
+            for sentinel, dt in ((SENTINEL, torch.int64),
+                                 (tier_sentinel, out_dtype)):
+                check.extract_case(cols, *lay, 1796, 0, sentinel, dt,
+                                   f"tile edge: {name}, lengths={lengths}, "
+                                   f"sentinel={sentinel}")
 
 
 def shard_case(check: KernelCheck, eng, lo, hi, what: str,
@@ -925,30 +980,54 @@ def sharded_states(check: KernelCheck, bam: str, bed: str, dev):
     return shapes
 
 
+def bucket_defined(out, live: int = None):
+    """bucket_events' defined outputs: the first sum(counts) slots of
+    both buffers (the rest is undefined in the kernel's), the counts and
+    the sums."""
+    n = int(out[2].sum()) if live is None else live
+    return out[0][:n], out[1][:n], out[2], out[3]
+
+
 def bucket_case(check: KernelCheck, pos, delta, bounds, tier: int,
                 what: str) -> None:
-    """bucket_events and its twin on one input: the first sum(counts)
-    slots of both buffers (the rest is undefined in the kernel's), the
-    counts and the sums."""
+    """bucket_events and its twin on one input: their defined outputs
+    (:func:`bucket_defined`, cut at the twin's count)."""
     from pandepth_tpu_torch.device import kernels
     from pandepth_tpu_torch.sharding import mesh
 
     got = kernels.bucket_events(pos, delta, bounds, tier)
     want = mesh.bucket_events_reference(pos, delta, bounds, tier)
     n = int(want[2].sum())
-    check.compare("bucket_events", (got[0][:n], got[1][:n], *got[2:]),
-                  (want[0][:n], want[1][:n], *want[2:]), what)
+    check.compare("bucket_events", bucket_defined(got, n),
+                  bucket_defined(want, n), what)
 
 
 def bucket_edge_cases(check: KernelCheck, dev) -> None:
     """bucket_events on every position tier, over 1, 2, 3, 8 and 1024
     ranges: 0, 1, 5,000 and 1,000,003 events (a third of them in
     coordinate order, deltas -1, 0, 1, 5, dead slots at the sentinel too)
-    and a hot range (every event in range 0 but one at the axis's end)."""
+    and a hot range (every event in range 0 but one at the axis's end);
+    then on the edges of its tiles and look-back
+    (``synth.bucket_edge_events``, the cases tests/test_torch_multihost.py
+    holds the twin to JAX on): 0, 1, a tile - 1, a tile, a tile + 1 and a
+    few tiles of events over 1, 2, 8, 37 and 1024 ranges, a destination
+    change on a tile's first and last event, an all-dead tile, a range
+    empty everywhere and a hot range."""
     import numpy as np
     import torch
 
+    from pandepth_tpu_torch.device.convert import tier_of
     from pandepth_tpu_torch.device.kernels import TIER_I32, TIER_I64, TIER_U32
+    from pandepth_tpu_torch.synth import bucket_edge_events
+
+    for name, pos, delta, np_dt, bounds in bucket_edge_events(seed=4):
+        w = pos.astype(np_dt)
+        if np_dt is np.uint32:
+            w = w.view(np.int32)
+        bucket_case(check, torch.from_numpy(w).to(dev),
+                    torch.from_numpy(delta).to(dev),
+                    torch.from_numpy(bounds).to(dev), tier_of(np_dt),
+                    f"tile edge: {name}")
 
     rng = np.random.RandomState(21)
     for tier, np_dt, span in ((TIER_I32, np.int32, 2_000_000_000),
@@ -1010,11 +1089,20 @@ def bucket_main_path(check: KernelCheck, eng, dev) -> str:
                                   right=True).clamp_(max=world - 1)
         sort_ms = cuda_ms(lambda: torch.sort(dest, stable=True))
         note = "" if world == 2 else f"{what}, {world} ranges"
-        check.time("bucket_events",
-                   lambda: kernels.bucket_events(pw, dw, bounds, tier),
-                   lambda: mesh.bucket_events_reference(pw, dw, bounds,
-                                                        tier),
-                   2 * n * (pos.itemsize + 4), note)
+        kernel = lambda: kernels.bucket_events(  # noqa: E731
+            pw, dw, bounds, tier)
+        ms = check.time("bucket_events", kernel,
+                        lambda: mesh.bucket_events_reference(pw, dw, bounds,
+                                                             tier),
+                        2 * n * (pos.itemsize + 4), note)
+        check.device_note("bucket_events", kernel,
+                          f"{what}, {world} ranges", ms)
+        if world == 2:
+            want = mesh.bucket_events_reference(pw, dw, bounds, tier)
+            live = int(want[2].sum())
+            check.repeat("bucket_events",
+                         lambda: bucket_defined(kernel()),
+                         bucket_defined(want, live), f"{what}, 2 ranges")
         if note:
             check.notes.append(f"library stable sort of the {n} "
                                f"destinations ({world} ranges; the order "
@@ -1142,6 +1230,33 @@ class FirstBatch:
         self.dtype = eng._dev_dtype
         self.tier = eng.pos_dtype.__name__
         self.flags_mask, self.min_mapq = cfg.flags, cfg.min_mapq
+
+
+def load_latency_note(check: KernelCheck, dev) -> None:
+    """The card's time per dependent load, for the latency-bound kernels'
+    (K3, K5, eval_pair_rows) dependent-load bound: eval_boundaries with
+    one query on sorted states of 2 and 2^24 int64 events, each query's
+    binary search 2 and 25 probes deep, one probe a dependent load; the
+    device time's slope per probe (the same query every call, so its
+    probes hit the L2 cache: the least a dependent load takes)."""
+    import torch
+
+    from pandepth_tpu_torch.device import kernels
+
+    times = {}
+    for n in (2, 1 << 24):
+        pos = torch.arange(n, dtype=torch.int64, device=dev) * 97
+        depth = torch.zeros(n, dtype=torch.int32, device=dev)
+        zero = torch.zeros(n, dtype=torch.int64, device=dev)
+        x = torch.tensor([97 * (n // 3) + 5], dtype=torch.int64, device=dev)
+        times[n] = (device_ms(lambda: kernels.eval_boundaries(
+            pos, depth, zero, zero, 1, x), iters=50)[0], n.bit_length())
+    (t_lo, p_lo), (t_hi, p_hi) = times[2], times[1 << 24]
+    check.notes.append(f"dependent-load latency: one eval_boundaries query "
+                       f"{t_lo:.4f} ms on 2 events ({p_lo} probes), "
+                       f"{t_hi:.4f} ms on 2^24 ({p_hi} probes): "
+                       f"{(t_hi - t_lo) / (p_hi - p_lo) * 1e6:.1f} ns a "
+                       f"dependent load")
 
 
 def main_path_cigar(check: KernelCheck, fb: FirstBatch, dev) -> None:
@@ -1501,6 +1616,7 @@ def main() -> int:
                        f"{fb.batch_s[0]:.3f} s, the other "
                        f"{len(fb.batch_s) - 1} {sum(fb.batch_s[1:]):.3f} s")
         main_path_cigar(check, fb, dev)
+        load_latency_note(check, dev)
         torch.cuda.synchronize()
         shapes = {k: states["chr"]
                   for k in ("pack_events", "sweep_scan", "eval_pair")}

@@ -32,7 +32,7 @@ constexpr int TIER_I64 = 2;
 constexpr int THREADS = 256;            // threads per block in the scans
 constexpr int ITEMS = 8;                // consecutive elements per thread
 constexpr int TILE = THREADS * ITEMS;   // elements per scan block
-constexpr int TOTALS_THREADS = 1024;    // the one-block scan of totals
+constexpr int TOTALS_THREADS = 1024;    // shard_carry's one-block carry
 constexpr int POINT_THREADS = 256;      // pack_events / eval_pair
 constexpr int32_t WRAP18_MASK = 0x3FFFF;
 
@@ -437,21 +437,6 @@ sweep_scan_kernel(const P* __restrict__ pos,
     }
 }
 
-// In-place exclusive scan of n values by ONE block of TOTALS_THREADS.
-template <typename T>
-__global__ void exclusive_scan_one_block(T* __restrict__ a, int64_t n) {
-    __shared__ T warp_tot[32];
-    T carry = 0;
-    for (int64_t b = 0; b < n; b += blockDim.x) {
-        const int64_t i = b + threadIdx.x;
-        const T v = i < n ? a[i] : T(0);
-        T chunk_total;
-        const T ex = block_exclusive_scan<T>(v, warp_tot, &chunk_total);
-        if (i < n) a[i] = carry + ex;
-        carry += chunk_total;
-    }
-}
-
 // ---------------------------------------------------------------------
 // K3 eval_pair — replaces pandepth_tpu/device/sweep.py:eval_pair.
 // Bound on the H100: memory latency, not bandwidth. Each segment does
@@ -535,28 +520,40 @@ __global__ void eval_boundaries_kernel(const P* __restrict__ pos,
 // K6 extract_events — replaces pandepth_tpu/device/events.py:
 // extract_events (and, with the engine's tier sentinel and position
 // dtype, the clamp-and-cast of pandepth_tpu/device/engine.py:add_batch).
-// Bound on the H100: memory. Per CIGAR op it reads op_code/op_len/
-// op_read (12 B) twice, the op's read row (tid/pos/flag/mapq, 16 B, but
-// neighbouring ops share a read, so mostly cache hits), writes and
-// re-reads its int64 ref offset, and writes two positions and two
-// deltas (16-24 B): ~60 B per op, ~63 MB for a 2^20-op batch.
+// Bound on the H100: memory. Per CIGAR op it must read op_code/op_len/
+// op_read (12 B) and its read's row (tid/pos/flag/mapq, 16 B a read) and
+// write two positions and two deltas (16-24 B).
 // JAX rebases a global exclusive cumsum of ref-consumed lengths per read
-// with segment_min over op_read. A thread per read walking its op range
-// would serialise on the one read that owns a JAX-padded tail (half the
-// ops) or a long CIGAR, so the design is per op:
-//   1. per-block totals of the ref-consumed lengths (ref_len_totals_kernel)
-//   2. one-block exclusive scan of them            (exclusive_scan_one_block)
-//   3. each op's global exclusive prefix; the first op of each read
-//      stores its prefix as the read's base       (ref_offset_kernel)
-//   4. one thread per op: offset = prefix - its read's base, the read's
-//      filters, the clip, two events             (emit_events_kernel)
-// op_read must be non-decreasing and op_len non-negative (a BAM length is
-// 28-bit unsigned), as JAX's sorted segment_min also assumes: the
-// minimum of a read's non-decreasing prefixes is its first op's.
+// with segment_min over op_read: with op_read non-decreasing and op_len
+// non-negative (a BAM length is 28-bit unsigned), as JAX's sorted
+// segment_min also assumes, the minimum of a read's prefixes is its first
+// op's, so an op's offset is the sum of the ref-consumed lengths of the
+// earlier ops of its read: a segmented exclusive scan whose heads are the
+// ops with i == 0 or op_read[i - 1] != op_read[i], equal to JAX's modulo
+// 2^64. The design is one pass, one launch: a tile of EXT_TILE ops (an
+// atomic counter hands out the tile ids) loads its three op columns
+// striped (coalesced) into shared memory, scans them on the blocked
+// layout (EXT_ITEMS consecutive ops a thread), and writes each op's
+// offset back to shared memory; then each op, striped again, gathers its
+// read's row, filters, clips and writes its two events, so the stores
+// coalesce. Only a read that runs into a tile from an earlier one needs a
+// carry: a tile that holds a head publishes its sum since its last head
+// at once as an inclusive prefix (ST_INC), which ends every chain through
+// it, and reads back for its first ops only if they continue a read; a
+// tile without a head publishes its sum as an aggregate (ST_AGG) and
+// looks back. Only a read of more than a tile of ops makes a chain.
 
 constexpr int32_t REF_CONSUME_MASK = 0x18D;  // M D N = X
 constexpr int32_t DEPTH_MASK = 0x181;        // M = X
 constexpr int64_t DEAD_POS = 1LL << 62;      // JAX's dead-slot SENTINEL
+
+// Tiles of 1,024 ops: a 2^20-op batch is 1,024 tiles, about eight for
+// each of the 132 SMs; the fastest of 512, 1,024 and 2,048 on an H100
+// (PERF.md). The tile size is also pandepth_tpu_torch/synth.py's
+// EXTRACT_TILE, which chip_smoke.py holds to the library's.
+constexpr int EXT_THREADS = 256;
+constexpr int EXT_ITEMS = 4;
+constexpr int EXT_TILE = EXT_THREADS * EXT_ITEMS;
 
 // bit `code` of `mask`; 0 for a code outside [0, 32), as XLA's shift
 __device__ __forceinline__ int32_t op_bit(int32_t mask, int32_t code) {
@@ -575,97 +572,188 @@ __device__ __forceinline__ int64_t clip64(int64_t x, int64_t lo,
     return x > hi ? hi : x;
 }
 
-__global__ void ref_len_totals_kernel(const int32_t* __restrict__ op_code,
-                                      const int32_t* __restrict__ op_len,
-                                      int64_t m, u64* __restrict__ tot) {
-    __shared__ u64 warp_tot[32];
-    const int64_t base = (int64_t)blockIdx.x * TILE;
-    u64 s = 0;
+// A segmented sum over a span of ops: `head` when a read starts in it,
+// `sum` the sum since its last head (all of it without one). Combining
+// an earlier span a with a later b gives (a.head || b.head,
+// b.head ? b.sum : a.sum + b.sum).
+__device__ __forceinline__ void warp_seg_inclusive_scan(int& head, u64& sum) {
+    const int lane = threadIdx.x & 31;
 #pragma unroll
-    for (int k = 0; k < ITEMS; ++k) {
-        const int64_t i = base + (int64_t)k * THREADS + threadIdx.x;
-        if (i < m) s += ref_len(op_code[i], op_len[i]);
+    for (int o = 1; o < 32; o <<= 1) {
+        const int h = __shfl_up_sync(0xffffffffu, head, o);
+        const u64 s = __shfl_up_sync(0xffffffffu, sum, o);
+        if (lane >= o) {
+            if (!head) sum += s;
+            head |= h;
+        }
     }
-    u64 block_total;
-    block_exclusive_scan<u64>(s, warp_tot, &block_total);
-    if (threadIdx.x == 0) tot[blockIdx.x] = block_total;
 }
 
-__global__ void ref_offset_kernel(const int32_t* __restrict__ op_code,
-                                  const int32_t* __restrict__ op_len,
-                                  const int32_t* __restrict__ op_read,
-                                  int64_t m, int64_t n,
-                                  const u64* __restrict__ carry,
-                                  u64* __restrict__ excl,
-                                  u64* __restrict__ read_base) {
-    __shared__ u64 warp_tot[32];
-    const int64_t base = (int64_t)blockIdx.x * TILE
-                         + (int64_t)threadIdx.x * ITEMS;
-    u64 c[ITEMS];
-    u64 thread_sum = 0;
-#pragma unroll
-    for (int k = 0; k < ITEMS; ++k) {
-        const int64_t i = base + k;
-        c[k] = i < m ? ref_len(op_code[i], op_len[i]) : 0;
-        thread_sum += c[k];
+// Exclusive segmented scan of one (head, sum) per thread across the
+// block, in place ((0, 0) for thread 0), with the block's whole span in
+// (*tot_head, *tot_sum). All threads must call it.
+__device__ void block_seg_exclusive_scan(int& head, u64& sum, int* warp_head,
+                                         u64* warp_sum, int* tot_head,
+                                         u64* tot_sum) {
+    const int lane = threadIdx.x & 31;
+    const int warp = threadIdx.x >> 5;
+    const int nwarps = blockDim.x >> 5;
+    int h = head;
+    u64 s = sum;
+    warp_seg_inclusive_scan(h, s);
+    if (lane == 31) {
+        warp_head[warp] = h;
+        warp_sum[warp] = s;
     }
-    u64 block_total;
-    u64 run = block_exclusive_scan<u64>(thread_sum, warp_tot, &block_total)
-              + carry[blockIdx.x];
-#pragma unroll
-    for (int k = 0; k < ITEMS; ++k) {
-        const int64_t i = base + k;
-        if (i < m) {
-            excl[i] = run;
-            const int32_t r = op_read[i];
-            if ((i == 0 || op_read[i - 1] != r) && (uint32_t)r < n)
-                read_base[r] = run;
+    int eh = __shfl_up_sync(0xffffffffu, h, 1);
+    u64 es = __shfl_up_sync(0xffffffffu, s, 1);
+    if (lane == 0) {
+        eh = 0;
+        es = 0;
+    }
+    __syncthreads();
+    if (warp == 0) {
+        int wh = lane < nwarps ? warp_head[lane] : 0;
+        u64 ws = lane < nwarps ? warp_sum[lane] : 0;
+        warp_seg_inclusive_scan(wh, ws);
+        if (lane < nwarps) {
+            warp_head[lane] = wh;
+            warp_sum[lane] = ws;
         }
-        run += c[k];
     }
+    __syncthreads();
+    const int ph = warp > 0 ? warp_head[warp - 1] : 0;
+    const u64 ps = warp > 0 ? warp_sum[warp - 1] : 0;
+    head = ph | eh;
+    sum = eh ? es : ps + es;
+    *tot_head = warp_head[nwarps - 1];
+    *tot_sum = warp_sum[nwarps - 1];
+    __syncthreads();  // warp_head / warp_sum are free again
 }
 
 template <typename Out>
-__global__ void emit_events_kernel(const int32_t* __restrict__ tid,
-                                   const int32_t* __restrict__ pos,
-                                   const int32_t* __restrict__ flag,
-                                   const int32_t* __restrict__ mapq,
-                                   const int32_t* __restrict__ op_code,
-                                   const int32_t* __restrict__ op_len,
-                                   const int32_t* __restrict__ op_read,
-                                   int64_t m, int64_t n,
-                                   const int64_t* __restrict__ offsets,
-                                   const int64_t* __restrict__ limits,
-                                   int64_t n_targets, int32_t flags_mask,
-                                   int32_t min_mapq,
-                                   const u64* __restrict__ excl,
-                                   const u64* __restrict__ read_base,
-                                   int64_t sentinel,
-                                   Out* __restrict__ ev_pos,
-                                   int32_t* __restrict__ ev_delta) {
-    const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-    for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < m;
-         i += stride) {
+__global__ void __launch_bounds__(EXT_THREADS)
+extract_events_kernel(const int32_t* __restrict__ tid,
+                      const int32_t* __restrict__ pos,
+                      const int32_t* __restrict__ flag,
+                      const int32_t* __restrict__ mapq,
+                      const int32_t* __restrict__ op_code,
+                      const int32_t* __restrict__ op_len,
+                      const int32_t* __restrict__ op_read, int64_t m,
+                      int64_t n, const int64_t* __restrict__ offsets,
+                      const int64_t* __restrict__ limits, int64_t n_targets,
+                      int32_t flags_mask, int32_t min_mapq, int64_t sentinel,
+                      Out* __restrict__ ev_pos, int32_t* __restrict__ ev_delta,
+                      unsigned* counter, Lookback scan) {
+    __shared__ int32_t s_code[padded_size<int32_t>(EXT_TILE)];
+    __shared__ int32_t s_len[padded_size<int32_t>(EXT_TILE)];
+    __shared__ int32_t s_read[padded_size<int32_t>(EXT_TILE)];
+    __shared__ u64 s_off[padded_size<u64>(EXT_TILE)];
+    __shared__ int warp_head[32];
+    __shared__ u64 warp_sum[32];
+    __shared__ u64 prefix[1];
+    __shared__ int32_t s_prev;   // op_read of the op before the tile
+    __shared__ unsigned s_tile;
+    const int t = threadIdx.x;
+    if (t == 0) s_tile = atomicAdd(counter, 1u);
+    __syncthreads();
+    const int64_t tile = s_tile;
+    const int64_t base = tile * EXT_TILE;
+    if (t == 0) s_prev = base > 0 ? op_read[base - 1] : 0;
+#pragma unroll
+    for (int k = 0; k < EXT_ITEMS; ++k) {   // striped, coalesced
+        const int j = k * EXT_THREADS + t;
+        const int64_t i = base + j;
+        const bool in = i < m;
+        s_code[padded<int32_t>(j)] = in ? op_code[i] : 0;
+        s_len[padded<int32_t>(j)] = in ? op_len[i] : 0;
+        s_read[padded<int32_t>(j)] = in ? op_read[i] : 0;
+    }
+    __syncthreads();
+
+    const int j0 = t * EXT_ITEMS;   // blocked from here
+    u64 clen[EXT_ITEMS];
+    unsigned heads = 0;             // bit k: op j0 + k starts a read
+    int head = 0;
+    u64 sum = 0;
+    int32_t prev = j0 ? s_read[padded<int32_t>(j0 - 1)] : s_prev;
+#pragma unroll
+    for (int k = 0; k < EXT_ITEMS; ++k) {
+        const int j = j0 + k;
+        const int64_t i = base + j;
+        const int32_t r = s_read[padded<int32_t>(j)];
+        const bool in = i < m;
+        clen[k] = in ? ref_len(s_code[padded<int32_t>(j)],
+                               s_len[padded<int32_t>(j)]) : 0;
+        if (in && (i == 0 || r != prev)) {
+            heads |= 1u << k;
+            head = 1;
+            sum = 0;
+        }
+        sum += clen[k];
+        prev = r;
+    }
+    int tile_head;
+    u64 tile_sum;
+    block_seg_exclusive_scan(head, sum, warp_head, warp_sum, &tile_head,
+                             &tile_sum);
+    // the carry into the tile's first ops, from the tiles before it
+    const bool first_head = base == 0 || s_read[0] != s_prev;
+    u64 carry = 0;
+    if (tile_head) {
+        if (t == 0) {
+            const u64 inc[1] = {tile_sum};
+            publish<1>(scan, tile, inc, ST_INC);
+        }
+        if (!first_head) {
+            if (t < 32) {
+                u64 ex[1];
+                look_back<1>(scan, 0, tile, ex);
+                if (t == 0) prefix[0] = ex[0];
+            }
+            __syncthreads();
+            carry = prefix[0];
+        }
+    } else {
+        const u64 zero[1] = {0}, tot[1] = {tile_sum};
+        u64 pre[1];
+        tile_prefix<1>(scan, 0, tile, zero, tot, prefix, pre);
+        carry = pre[0];
+    }
+    u64 run = head ? sum : carry + sum;
+#pragma unroll
+    for (int k = 0; k < EXT_ITEMS; ++k) {
+        if (heads >> k & 1u) run = 0;
+        s_off[padded<u64>(j0 + k)] = run;
+        run += clen[k];
+    }
+    __syncthreads();
+
+#pragma unroll
+    for (int k = 0; k < EXT_ITEMS; ++k) {   // striped again
+        const int j = k * EXT_THREADS + t;
+        const int64_t i = base + j;
+        if (i >= m) break;
         // an op_read outside [0, n) reads a clamped row (memory safety;
         // the decoders never produce one)
-        const int32_t r_raw = op_read[i];
+        const int32_t r_raw = s_read[padded<int32_t>(j)];
         const int64_t r = r_raw < 0 ? 0 : (r_raw < n ? r_raw : n - 1);
-        const int32_t t = tid[r];
-        bool keep = (flag[r] & flags_mask) == 0 && t >= 0;
+        const int32_t tr = tid[r];
+        bool keep = (flag[r] & flags_mask) == 0 && tr >= 0;
         if (min_mapq >= 1) keep = keep && mapq[r] >= min_mapq;
         // JAX gathers at max(tid, 0) and clamps past the last target
-        const int64_t ts = t < 0 ? 0 : (t < n_targets ? t : n_targets - 1);
+        const int64_t ts = tr < 0 ? 0 : (tr < n_targets ? tr : n_targets - 1);
         const int64_t lo = offsets[ts];
         const int64_t hi = limits[ts];
-        const int32_t len = op_len[i];
+        const int32_t len = s_len[padded<int32_t>(j)];
         // int64 sums wrap as in JAX
-        const u64 off = excl[i] - read_base[r];
-        int64_t start = (int64_t)((u64)lo + (u64)(int64_t)pos[r] + off);
+        int64_t start = (int64_t)((u64)lo + (u64)(int64_t)pos[r]
+                                  + s_off[padded<u64>(j)]);
         int64_t end = (int64_t)((u64)start + (u64)(int64_t)len);
         start = clip64(start, lo, hi);
         end = clip64(end, lo, hi);
-        const bool live = op_bit(DEPTH_MASK, op_code[i]) && keep && len > 0
-                          && end > start;
+        const bool live = op_bit(DEPTH_MASK, s_code[padded<int32_t>(j)])
+                          && keep && len > 0 && end > start;
         // JAX's where(live, x, SENTINEL), then add_batch's min(., sentinel)
         const int64_t s = live ? start : DEAD_POS;
         const int64_t e = live ? end : DEAD_POS;
@@ -1014,32 +1102,66 @@ __global__ void eval_pair_rows_kernel(const P* __restrict__ pos,
 // search of the world - 1 inner cuts held in shared memory (positions
 // compared as int64, the uint32 tier's words zero-extended) and so
 // clipped to world - 1. Dead events go nowhere. Bound on the H100:
-// memory. It reads each event's position word and delta twice and writes
-// them once; the bound counts one read (16 B per event in the 32-bit
-// tiers).
-//   1. per tile of BUCKET_TILE events: each destination's count, written
-//      destination-major as cnt[d * ntiles + tile], and added with the
-//      destination's delta sum into counts[d] / sums[d]
-//      (bucket_count_kernel; each thread accumulates a run of one
-//      destination and flushes it to shared memory when the destination
-//      changes, so a coordinate-sorted feed costs few atomics)
-//   2. one-block exclusive scan of cnt: the first output slot of each
-//      (destination, tile)                 (exclusive_scan_one_block)
-//   3. per tile again: each warp counts the destinations of its own
-//      contiguous sub-chunk, the warps' counts are scanned per
-//      destination from the tile's slot, then each warp walks its
-//      sub-chunk 32 events at a time, ranking the lanes of one
-//      destination with __match_any_sync (bucket_scatter_kernel).
-// The output is ordered by destination, then tile, warp, round and lane:
-// input order within a destination, the stable order of JAX's
-// sort_key_val that array-equal sweep state needs.
+// memory; the bound counts one read of each event's position word and
+// delta and one write (16 B an event in the 32-bit tiers). No pass can
+// know where a destination's run starts before every tile is counted, so
+// the design, Onesweep's (Adinets and Merrill, NVIDIA 2022) for a single
+// digit, reads the events twice and writes them once (24 B an event):
+// two launches after one memset of the scratch, over tiles of BUCKET_TILE
+// events.
+//   1. bucket_hist_kernel: each destination's live count and delta sum
+//      through a shared-memory histogram (a thread's run of one
+//      destination added at once, a warp's runs of one destination
+//      summed first), then global atomics into the scratch.
+//   2. bucket_scatter_kernel, one chained-scan pass, tile ids from an
+//      atomic counter, taken from the input's end (where pass 1 left the
+//      L2 cache) back to its start: each warp ranks the 32 lanes of each
+//      round of its contiguous sub-chunk by destination (up to 32 ranges
+//      by ballots of the destination's bits, with a register count of
+//      one destination a lane, and one warp then scans the warps' counts;
+//      past 32 with __match_any_sync and shared-memory counts and
+//      block-wide scans); the tile publishes each destination's count at
+//      once in a (tile x destination) status array, one 64-bit word each
+//      (the flag in the high bits, the count in the low 32, so there is
+//      no value/flag pair and no fence), and resolves each destination's
+//      count in the later chunks by a decoupled look-back, the block's
+//      lanes shared among the destinations; with pass 1's counts, scanned
+//      in each block for every destination's first output slot, that
+//      places the tile's run of each destination; the tile stages its
+//      live events in shared memory in destination order and writes each
+//      run contiguously, so the stores coalesce.
+// The output is ordered by destination, then chunk of the input, warp,
+// round and lane: input order within a destination, the stable order of
+// JAX's sort_key_val that array-equal sweep state needs.
 
+// Tiles of 4,096 events (256 threads, 16 rounds of a warp each; 2,048 and
+// 8,192 were slower on an H100, PERF.md). The tile size is also
+// pandepth_tpu_torch/synth.py's BUCKET_TILE, which chip_smoke.py holds to
+// the library's.
 constexpr int BUCKET_THREADS = 256;
 constexpr int BUCKET_WARPS = BUCKET_THREADS / 32;
 constexpr int BUCKET_ROUNDS = 16;                       // per warp
 constexpr int BUCKET_SUB = 32 * BUCKET_ROUNDS;          // events per warp
 constexpr int BUCKET_TILE = BUCKET_WARPS * BUCKET_SUB;  // events per block
 constexpr int BUCKET_MAX_WORLD = 1024;
+
+// a packed status word: the flag above bit 32, the count below
+constexpr u64 PK_AGG = 1ull << 32;   // the tile's own count
+constexpr u64 PK_INC = 2ull << 32;   // its inclusive prefix
+
+__device__ __forceinline__ void st_relaxed64(u64* p, u64 v) {
+    asm volatile("st.relaxed.gpu.u64 [%0], %1;" ::"l"(p), "l"(v)
+                 : "memory");
+}
+
+__device__ __forceinline__ u64 ld_relaxed64(const u64* p) {
+    u64 v;
+    asm volatile("ld.relaxed.gpu.u64 %0, [%1];"
+                 : "=l"(v)
+                 : "l"(p)
+                 : "memory");
+    return v;
+}
 
 // searchsorted(cuts, x, side="right"): the number of cuts <= x
 __device__ __forceinline__ int find_dest(const int64_t* cuts, int ncuts,
@@ -1053,136 +1175,378 @@ __device__ __forceinline__ int find_dest(const int64_t* cuts, int ncuts,
     return lo;
 }
 
+// In-place exclusive scan of a[0, len) in shared memory by the block,
+// each thread a run of consecutive entries; returns the total. All
+// threads must call it.
+__device__ uint32_t block_scan_in_place(uint32_t* a, int len,
+                                        uint32_t* warp_tot) {
+    const int per = (len + blockDim.x - 1) / blockDim.x;
+    const int lo = threadIdx.x * per;
+    const int hi = lo + per < len ? lo + per : len;
+    uint32_t s = 0;
+    for (int k = lo; k < hi; ++k) s += a[k];
+    uint32_t tot;
+    uint32_t run = block_exclusive_scan<uint32_t>(s, warp_tot, &tot);
+    for (int k = lo; k < hi; ++k) {
+        const uint32_t v = a[k];
+        a[k] = run;
+        run += v;
+    }
+    __syncthreads();
+    return tot;
+}
+
 template <typename W>
-__global__ void bucket_count_kernel(const W* __restrict__ pos,
-                                    const int32_t* __restrict__ delta,
-                                    int64_t n,
-                                    const int64_t* __restrict__ bounds,
-                                    int world, int64_t ntiles,
-                                    uint32_t* __restrict__ cnt,
-                                    uint32_t* __restrict__ counts,
-                                    u64* __restrict__ sums) {
+__global__ void __launch_bounds__(BUCKET_THREADS)
+bucket_hist_kernel(const W* __restrict__ pos,
+                   const int32_t* __restrict__ delta, int64_t n,
+                   const int64_t* __restrict__ bounds, int world,
+                   uint32_t* __restrict__ hcount, u64* __restrict__ hsum) {
     __shared__ int64_t cuts[BUCKET_MAX_WORLD];
     __shared__ uint32_t hist[BUCKET_MAX_WORLD];
-    __shared__ u64 hsum[BUCKET_MAX_WORLD];
-    for (int d = threadIdx.x; d < world; d += blockDim.x) {
+    __shared__ u64 hs[BUCKET_MAX_WORLD];
+    for (int d = threadIdx.x; d < world; d += BUCKET_THREADS) {
         if (d < world - 1) cuts[d] = bounds[d + 1];
         hist[d] = 0;
-        hsum[d] = 0;
+        hs[d] = 0;
     }
     __syncthreads();
     const int64_t base = (int64_t)blockIdx.x * BUCKET_TILE;
-    int cur = 0;
+    W p[BUCKET_ROUNDS];
+    int32_t dl[BUCKET_ROUNDS];
+#pragma unroll
+    for (int k = 0; k < BUCKET_ROUNDS; ++k) {   // striped, coalesced
+        const int64_t i = base + (int64_t)k * BUCKET_THREADS + threadIdx.x;
+        dl[k] = i < n ? delta[i] : 0;
+        p[k] = i < n ? pos[i] : W(0);
+    }
+    int cur = -1;
     uint32_t run = 0;
     u64 run_sum = 0;
-    for (int k = 0; k < BUCKET_TILE / BUCKET_THREADS; ++k) {
-        const int64_t i = base + (int64_t)k * BUCKET_THREADS + threadIdx.x;
-        if (i >= n) break;
-        const int32_t dl = delta[i];
-        if (dl == 0) continue;
-        const int d = find_dest(cuts, world - 1, (int64_t)pos[i]);
-        if (d != cur && run) {
-            atomicAdd(&hist[cur], run);
-            atomicAdd(&hsum[cur], run_sum);
+#pragma unroll
+    for (int k = 0; k < BUCKET_ROUNDS; ++k) {
+        if (dl[k] == 0) continue;
+        const int d = find_dest(cuts, world - 1, (int64_t)p[k]);
+        if (d != cur) {
+            if (run) {
+                atomicAdd(&hist[cur], run);
+                atomicAdd(&hs[cur], run_sum);
+            }
+            cur = d;
             run = 0;
             run_sum = 0;
         }
-        cur = d;
         ++run;
-        run_sum += (u64)(int64_t)dl;
+        run_sum += (u64)(int64_t)dl[k];
     }
-    if (run) {
-        atomicAdd(&hist[cur], run);
-        atomicAdd(&hsum[cur], run_sum);
+    // a warp whose runs all hold one destination adds them once
+    const unsigned held = __ballot_sync(0xffffffffu, run != 0);
+    if (held) {
+        const int d0 = __shfl_sync(0xffffffffu, cur, __ffs(held) - 1);
+        if (__all_sync(0xffffffffu, run == 0 || cur == d0)) {
+#pragma unroll
+            for (int o = 16; o > 0; o >>= 1) {
+                run += __shfl_xor_sync(0xffffffffu, run, o);
+                run_sum += __shfl_xor_sync(0xffffffffu, run_sum, o);
+            }
+            if ((threadIdx.x & 31) == 0) {
+                atomicAdd(&hist[d0], run);
+                atomicAdd(&hs[d0], run_sum);
+            }
+        } else if (run) {
+            atomicAdd(&hist[cur], run);
+            atomicAdd(&hs[cur], run_sum);
+        }
     }
     __syncthreads();
-    for (int d = threadIdx.x; d < world; d += blockDim.x) {
-        const uint32_t c = hist[d];
-        cnt[(int64_t)d * ntiles + blockIdx.x] = c;
-        if (c) {
-            atomicAdd(&counts[d], c);
-            atomicAdd(&sums[d], hsum[d]);
+    for (int d = threadIdx.x; d < world; d += BUCKET_THREADS) {
+        if (hist[d]) {
+            atomicAdd(&hcount[d], hist[d]);
+            atomicAdd(&hsum[d], hs[d]);
         }
     }
 }
 
-template <typename W>
-__global__ void bucket_scatter_kernel(const W* __restrict__ pos,
-                                      const int32_t* __restrict__ delta,
-                                      int64_t n,
-                                      const int64_t* __restrict__ bounds,
-                                      int world, int64_t ntiles,
-                                      const uint32_t* __restrict__ cnt,
-                                      W* __restrict__ out_pos,
-                                      int32_t* __restrict__ out_delta) {
-    __shared__ int64_t cuts[BUCKET_MAX_WORLD];
-    __shared__ uint32_t slot[BUCKET_WARPS * BUCKET_MAX_WORLD];
+// For each destination d of the tile, the sum of its counts in the tiles
+// before `tile`, into excl[d], from the packed status words
+// status[p * world + d]; the tile's inclusive prefix (that plus tcnt[d])
+// is then published. A group of L lanes (a power of two, L * world <=
+// BUCKET_THREADS where it can be) takes one destination at a time: lane j
+// reads the predecessor at distance j + 1, then L further back each pass,
+// until one lane of the group finds an inclusive prefix. All threads must
+// call it.
+__device__ void bucket_look_back(u64* status, int world, int64_t tile,
+                                 const uint32_t* tcnt, uint32_t* excl) {
+    int L = 32;
+    while (L > 1 && L * world > BUCKET_THREADS) L >>= 1;
     const int lane = threadIdx.x & 31;
-    const int warp = threadIdx.x >> 5;
-    for (int d = threadIdx.x; d < world - 1; d += blockDim.x)
-        cuts[d] = bounds[d + 1];
-    for (int j = threadIdx.x; j < BUCKET_WARPS * world; j += blockDim.x)
-        slot[j] = 0;
+    const int j = lane & (L - 1);
+    const int first = lane - j;   // the group's first lane
+    const unsigned mask =
+        (L == 32 ? 0xffffffffu : (1u << L) - 1u) << first;
+    const int groups = BUCKET_THREADS / L;
+    for (int d0 = 0; d0 < world; d0 += groups) {
+        const int d = d0 + (int)threadIdx.x / L;
+        bool todo = d < world;
+        uint32_t sum = 0;
+        for (int64_t p = tile - 1 - j; __any_sync(0xffffffffu, todo);
+             p -= L) {
+            u64 w;   // a tile before the first reads as an inclusive zero
+            while (true) {
+                w = todo && p >= 0 ? ld_relaxed64(status + p * world + d)
+                                   : PK_INC;
+                if (!__any_sync(0xffffffffu, w == 0)) break;
+                __nanosleep(LOOKBACK_SLEEP_NS);
+            }
+            // lanes up to the group's first inclusive prefix add theirs
+            const unsigned inc =
+                __ballot_sync(0xffffffffu, todo && w >= PK_INC) & mask;
+            const int stop = inc ? __ffs(inc) - 1 : first + L - 1;
+            uint32_t v = todo && lane <= stop ? (uint32_t)w : 0u;
+            for (int o = L >> 1; o > 0; o >>= 1)
+                v += __shfl_xor_sync(0xffffffffu, v, o);
+            sum += v;
+            if (inc) todo = false;
+        }
+        if (d < world && j == 0) {
+            excl[d] = sum;
+            st_relaxed64(status + tile * world + d,
+                         PK_INC | (u64)(sum + tcnt[d]));
+        }
+    }
+}
+
+// the scatter's dynamic shared memory for `world` destinations: the
+// staged positions, the cuts, then the staged deltas, each warp's count
+// of each destination, and each destination's tile count, tile offset,
+// first output slot and tile prefix (uint32), then each staged event's
+// destination (uint16)
+template <typename W>
+__host__ __device__ constexpr int bucket_smem(int world) {
+    return BUCKET_TILE * (int)sizeof(W) + 8 * world
+           + 4 * (BUCKET_TILE + BUCKET_WARPS * world + 4 * world)
+           + 2 * BUCKET_TILE;
+}
+
+template <typename W, bool SMALL>
+__global__ void __launch_bounds__(BUCKET_THREADS)
+bucket_scatter_kernel(const W* __restrict__ pos,
+                      const int32_t* __restrict__ delta, int64_t n,
+                      const int64_t* __restrict__ bounds, int world,
+                      const uint32_t* __restrict__ hcount,
+                      const u64* __restrict__ hsum, W* __restrict__ out_pos,
+                      int32_t* __restrict__ out_delta,
+                      uint32_t* __restrict__ counts, u64* __restrict__ sums,
+                      unsigned* counter, u64* status) {
+    extern __shared__ __align__(16) unsigned char smem[];
+    W* s_pos = reinterpret_cast<W*>(smem);
+    int64_t* cuts = reinterpret_cast<int64_t*>(s_pos + BUCKET_TILE);
+    int32_t* s_delta = reinterpret_cast<int32_t*>(cuts + world);
+    uint32_t* slot = reinterpret_cast<uint32_t*>(s_delta + BUCKET_TILE);
+    uint32_t* tcnt = slot + BUCKET_WARPS * world;
+    uint32_t* toff = tcnt + world;
+    uint32_t* first = toff + world;
+    uint32_t* excl = first + world;
+    uint16_t* s_dst = reinterpret_cast<uint16_t*>(excl + world);
+    __shared__ uint32_t warp_tot[32];
+    __shared__ unsigned s_tile;
+    const int t = threadIdx.x;
+    const int lane = t & 31;
+    const int warp = t >> 5;
+    if (t == 0) s_tile = atomicAdd(counter, 1u);
+    for (int d = t; d < world; d += BUCKET_THREADS) {
+        if (d < world - 1) cuts[d] = bounds[d + 1];
+        first[d] = hcount[d];
+    }
+    for (int k = t; k < BUCKET_WARPS * world; k += BUCKET_THREADS)
+        slot[k] = 0;
     __syncthreads();
-    const int64_t sub =
-        (int64_t)blockIdx.x * BUCKET_TILE + (int64_t)warp * BUCKET_SUB;
+    const int64_t tile = s_tile;
+    if (tile == 0) {   // pass 1's totals are the call's counts and sums
+        for (int d = t; d < world; d += BUCKET_THREADS) {
+            counts[d] = hcount[d];
+            sums[d] = hsum[d];
+        }
+    }
+    // tile ids run from the input's end, where pass 1 left the L2 cache
+    const int64_t chunk = (n + BUCKET_TILE - 1) / BUCKET_TILE - 1 - tile;
+    const int64_t sub = chunk * BUCKET_TILE + (int64_t)warp * BUCKET_SUB;
     uint32_t* mine = slot + warp * world;
-    int dest[BUCKET_ROUNDS];  // world: dead or past the end
+    W p[BUCKET_ROUNDS];
+    int32_t dl[BUCKET_ROUNDS];
 #pragma unroll
-    for (int r = 0; r < BUCKET_ROUNDS; ++r) {
+    for (int r = 0; r < BUCKET_ROUNDS; ++r) {   // each round coalesced
         const int64_t i = sub + r * 32 + lane;
-        int d = world;
-        if (i < n && delta[i] != 0)
-            d = find_dest(cuts, world - 1, (int64_t)pos[i]);
-        dest[r] = d;
-        const unsigned int peers = __match_any_sync(0xffffffffu, d);
-        if (d < world && lane == __ffs(peers) - 1) mine[d] += __popc(peers);
-        __syncwarp();
+        dl[r] = i < n ? delta[i] : 0;
+        p[r] = i < n ? pos[i] : W(0);
     }
-    __syncthreads();
-    // each warp's first slot per destination: the tile's slot, then the
-    // counts of the earlier warps
-    for (int d = threadIdx.x; d < world; d += blockDim.x) {
-        uint32_t at = cnt[(int64_t)d * ntiles + blockIdx.x];
-        for (int w = 0; w < BUCKET_WARPS; ++w) {
-            const uint32_t c = slot[w * world + d];
-            slot[w * world + d] = at;
-            at += c;
+    // each event's destination d and its place among its warp's events of
+    // d, as d << 16 | place (d = world: dead or past the end)
+    const unsigned below = (1u << lane) - 1u;
+    uint32_t dat[BUCKET_ROUNDS];
+    uint32_t live;
+    if constexpr (SMALL) {
+        // world <= 32: lane e counts destination e in a register; a lane's
+        // peers are the lanes that agree with it on every bit of d
+        const int bits = world > 1 ? 32 - __clz(world - 1) : 0;
+        uint32_t c = 0;
+#pragma unroll
+        for (int r = 0; r < BUCKET_ROUNDS; ++r) {
+            const int d = dl[r] != 0
+                              ? find_dest(cuts, world - 1, (int64_t)p[r])
+                              : world;
+            unsigned peers = __ballot_sync(0xffffffffu, d < world);
+            unsigned mine_e = peers;   // the lanes whose d is this lane
+#pragma unroll
+            for (int k = 0; k < 5; ++k) {
+                if (k < bits) {
+                    const unsigned b = __ballot_sync(0xffffffffu, d >> k & 1);
+                    peers &= d >> k & 1 ? b : ~b;
+                    mine_e &= lane >> k & 1 ? b : ~b;
+                }
+            }
+            const uint32_t before = __shfl_sync(0xffffffffu, c, d & 31);
+            dat[r] = (uint32_t)d << 16
+                     | (d < world ? before + __popc(peers & below) : 0u);
+            c += __popc(mine_e);
         }
+        if (lane < world) slot[warp * world + lane] = c;
+        __syncthreads();
+        // warp 0, lane d: each warp's first place, the tile's count and
+        // offset, the destination's first output slot
+        if (warp == 0) {
+            uint32_t n_d = 0;
+            if (lane < world) {
+                for (int w = 0; w < BUCKET_WARPS; ++w) {
+                    const uint32_t x = slot[w * world + lane];
+                    slot[w * world + lane] = n_d;
+                    n_d += x;
+                }
+            }
+            const uint32_t f = lane < world ? first[lane] : 0u;
+            uint32_t inc_n = warp_inclusive_scan(n_d);
+            uint32_t inc_f = warp_inclusive_scan(f);
+            if (lane < world) {
+                tcnt[lane] = n_d;
+                toff[lane] = inc_n - n_d;
+                first[lane] = inc_f - f;
+                st_relaxed64(status + tile * world + lane,
+                             (tile == 0 ? PK_INC : PK_AGG) | n_d);
+            }
+            if (lane == 31) warp_tot[0] = inc_n;
+        }
+        __syncthreads();
+        live = warp_tot[0];
+    } else {
+#pragma unroll
+        for (int r = 0; r < BUCKET_ROUNDS; ++r) {
+            const int d = dl[r] != 0
+                              ? find_dest(cuts, world - 1, (int64_t)p[r])
+                              : world;
+            const unsigned peers = __match_any_sync(0xffffffffu, d);
+            dat[r] = (uint32_t)d << 16
+                     | (d < world ? mine[d] + __popc(peers & below) : 0u);
+            __syncwarp();
+            if (d < world && lane == __ffs(peers) - 1)
+                mine[d] += __popc(peers);
+            __syncwarp();
+        }
+        __syncthreads();
+        // each warp's first place per destination, the tile's counts
+        for (int d = t; d < world; d += BUCKET_THREADS) {
+            uint32_t c = 0;
+            for (int w = 0; w < BUCKET_WARPS; ++w) {
+                const uint32_t x = slot[w * world + d];
+                slot[w * world + d] = c;
+                c += x;
+            }
+            tcnt[d] = c;
+            toff[d] = c;
+        }
+        __syncthreads();
+        live = block_scan_in_place(toff, world, warp_tot);
+        block_scan_in_place(first, world, warp_tot);
+        for (int d = t; d < world; d += BUCKET_THREADS)
+            st_relaxed64(status + tile * world + d,
+                         (tile == 0 ? PK_INC : PK_AGG) | tcnt[d]);
     }
-    __syncthreads();
-    const unsigned int below = (1u << lane) - 1u;
+    // staged in destination order while the predecessors finish
 #pragma unroll
     for (int r = 0; r < BUCKET_ROUNDS; ++r) {
-        const int d = dest[r];
-        const unsigned int peers = __match_any_sync(0xffffffffu, d);
+        const int d = (int)(dat[r] >> 16);
         if (d < world) {
-            const uint32_t at = mine[d] + __popc(peers & below);
-            const int64_t i = sub + r * 32 + lane;
-            out_pos[at] = pos[i];
-            out_delta[at] = delta[i];
+            const uint32_t j = toff[d] + mine[d] + (dat[r] & 0xFFFFu);
+            s_pos[j] = p[r];
+            s_delta[j] = dl[r];
+            s_dst[j] = (uint16_t)d;
         }
-        __syncwarp();
-        if (d < world && lane == __ffs(peers) - 1) mine[d] += __popc(peers);
-        __syncwarp();
     }
+    if (tile == 0) {
+        for (int d = t; d < world; d += BUCKET_THREADS) excl[d] = 0;
+    } else {
+        bucket_look_back(status, world, tile, tcnt, excl);
+    }
+    __syncthreads();
+    // where the tile's run of each destination starts, less its offset:
+    // the look-back counted the later chunks (lower tile ids), so the
+    // earlier ones hold the rest of pass 1's count
+    for (int d = t; d < world; d += BUCKET_THREADS)
+        excl[d] = first[d] + (hcount[d] - excl[d] - tcnt[d]) - toff[d];
+    __syncthreads();
+    for (int j = t; j < (int)live; j += BUCKET_THREADS) {   // coalesced
+        const uint32_t to = excl[s_dst[j]] + j;
+        out_pos[to] = s_pos[j];
+        out_delta[to] = s_delta[j];
+    }
+}
+
+// The int64 words of bucket_events' scratch: the tile counter, pass 1's
+// delta sums (u64) and counts (u32) per destination, then the (tile x
+// destination) status words; one memset zeroes all of it.
+inline int64_t bucket_scratch_words(int64_t n, int world) {
+    return 1 + world + (world + 1) / 2
+           + (n + BUCKET_TILE - 1) / BUCKET_TILE * world;
 }
 
 template <typename W>
 int bucket_events_typed(const W* pos, const int32_t* delta, int64_t n,
                         const int64_t* bounds, int world, W* out_pos,
                         int32_t* out_delta, uint32_t* counts, u64* sums,
-                        uint32_t* cnt, cudaStream_t st) {
-    cudaMemsetAsync(counts, 0, sizeof(uint32_t) * world, st);
-    cudaMemsetAsync(sums, 0, sizeof(u64) * world, st);
-    if (n <= 0) return (int)cudaGetLastError();
+                        int64_t* scratch, cudaStream_t st) {
+    cudaError_t err;
+    if (n <= 0) {
+        err = cudaMemsetAsync(counts, 0, sizeof(uint32_t) * world, st);
+        if (err == cudaSuccess)
+            err = cudaMemsetAsync(sums, 0, sizeof(u64) * world, st);
+        return (int)err;
+    }
     const int64_t ntiles = (n + BUCKET_TILE - 1) / BUCKET_TILE;
-    bucket_count_kernel<W><<<(unsigned int)ntiles, BUCKET_THREADS, 0, st>>>(
-        pos, delta, n, bounds, world, ntiles, cnt, counts, sums);
-    exclusive_scan_one_block<uint32_t><<<1, TOTALS_THREADS, 0, st>>>(
-        cnt, ntiles * world);
-    bucket_scatter_kernel<W><<<(unsigned int)ntiles, BUCKET_THREADS, 0, st>>>(
-        pos, delta, n, bounds, world, ntiles, cnt, out_pos, out_delta);
+    unsigned* counter = reinterpret_cast<unsigned*>(scratch);
+    u64* hsum = reinterpret_cast<u64*>(scratch + 1);
+    uint32_t* hcount = reinterpret_cast<uint32_t*>(scratch + 1 + world);
+    u64* status = reinterpret_cast<u64*>(scratch + 1 + world
+                                         + (world + 1) / 2);
+    static std::atomic<u64> small_set{0}, large_set{0};
+    err = world <= 32
+        ? allow_smem(bucket_scatter_kernel<W, true>, bucket_smem<W>(32),
+                     small_set)
+        : allow_smem(bucket_scatter_kernel<W, false>,
+                     bucket_smem<W>(BUCKET_MAX_WORLD), large_set);
+    if (err != cudaSuccess) return (int)err;
+    err = cudaMemsetAsync(scratch, 0, 8 * bucket_scratch_words(n, world), st);
+    if (err != cudaSuccess) return (int)err;
+    bucket_hist_kernel<W><<<(unsigned int)ntiles, BUCKET_THREADS, 0, st>>>(
+        pos, delta, n, bounds, world, hcount, hsum);
+    if (world <= 32)
+        bucket_scatter_kernel<W, true>
+            <<<(unsigned int)ntiles, BUCKET_THREADS, bucket_smem<W>(world),
+               st>>>(pos, delta, n, bounds, world, hcount, hsum, out_pos,
+                     out_delta, counts, sums, counter, status);
+    else
+        bucket_scatter_kernel<W, false>
+            <<<(unsigned int)ntiles, BUCKET_THREADS, bucket_smem<W>(world),
+               st>>>(pos, delta, n, bounds, world, hcount, hsum, out_pos,
+                     out_delta, counts, sums, counter, status);
     return (int)cudaGetLastError();
 }
 
@@ -1215,21 +1579,48 @@ int sweep_scan_typed(const P* pos, const int32_t* delta, int64_t n,
     return (int)cudaGetLastError();
 }
 
+template <typename Out>
+int extract_events_typed(const int32_t* tid, const int32_t* pos,
+                         const int32_t* flag, const int32_t* mapq, int64_t n,
+                         const int32_t* op_code, const int32_t* op_len,
+                         const int32_t* op_read, int64_t m,
+                         const int64_t* offsets, const int64_t* limits,
+                         int64_t n_targets, int32_t flags_mask,
+                         int32_t min_mapq, int64_t sentinel, Out* ev_pos,
+                         int32_t* ev_delta, int64_t* scratch,
+                         cudaStream_t st) {
+    const int64_t ntiles = (m + EXT_TILE - 1) / EXT_TILE;
+    const int nv[1] = {1};
+    unsigned* counter;
+    Lookback scan;
+    int64_t zeroed;
+    carve_lookback(scratch, ntiles, 1, nv, &counter, &scan, &zeroed);
+    const cudaError_t err = cudaMemsetAsync(scratch, 0, 8 * zeroed, st);
+    if (err != cudaSuccess) return (int)err;
+    extract_events_kernel<Out><<<(unsigned int)ntiles, EXT_THREADS, 0, st>>>(
+        tid, pos, flag, mapq, op_code, op_len, op_read, m, n, offsets, limits,
+        n_targets, flags_mask, min_mapq, sentinel, ev_pos, ev_delta, counter,
+        scan);
+    return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
-// Elements per block of the multi-pass scans (extract_events,
-// shard_carry), from which their wrappers size their scratch.
+// Elements per block of shard_carry's partial sums, from which its
+// wrapper sizes its scratch.
 int64_t pdt_scan_tile(void) { return TILE; }
 
-// Events per tile of sweep_scan, slots per tile of decode_enc.
+// Events per tile of sweep_scan, slots per tile of decode_enc, ops per
+// tile of extract_events.
 int64_t pdt_sweep_scan_tile(void) { return SWEEP_TILE; }
 int64_t pdt_decode_enc_tile(void) { return DEC_TILE; }
+int64_t pdt_extract_events_tile(void) { return EXT_TILE; }
 
-// The int64 words of scratch that sweep_scan takes for n events, and
-// decode_enc for a block of rows x cap slots: tile counter, status words
-// and look-back slots.
+// The int64 words of scratch that sweep_scan takes for n events,
+// decode_enc for a block of rows x cap slots and extract_events for m
+// ops: tile counter, status words and look-back slots.
 int64_t pdt_sweep_scan_scratch(int64_t n) {
     const int nv[2] = {1, 2};
     return carve_lookback(nullptr, (n + SWEEP_TILE - 1) / SWEEP_TILE, 2, nv,
@@ -1240,6 +1631,12 @@ int64_t pdt_decode_enc_scratch(int64_t rows, int64_t cap) {
     const int nv[1] = {1};
     return carve_lookback(nullptr, rows * ((cap + DEC_TILE - 1) / DEC_TILE),
                           1, nv, nullptr, nullptr, nullptr);
+}
+
+int64_t pdt_extract_events_scratch(int64_t m) {
+    const int nv[1] = {1};
+    return carve_lookback(nullptr, (m + EXT_TILE - 1) / EXT_TILE, 1, nv,
+                          nullptr, nullptr, nullptr);
 }
 
 int pdt_pack_events(int device, int tier, const void* starts,
@@ -1331,10 +1728,11 @@ int pdt_eval_boundaries(int device, int pos64, const void* pos,
     return (int)cudaGetLastError();
 }
 
-// scratch: m + n + ceil(m / pdt_scan_tile()) int64 words (each op's
-// prefix, each read's base, the block totals). ev_pos is int64 when pos64
-// is set, else int32. Dead slots hold 1 << 62, and every position is then
-// clamped to at most `sentinel` (1 << 62 gives JAX's extract_events).
+// scratch: pdt_extract_events_scratch(m) int64 words. ev_pos is int64
+// when pos64 is set, else int32. Dead slots hold 1 << 62, and every
+// position is then clamped to at most `sentinel` (1 << 62 gives JAX's
+// extract_events). op_read must be non-decreasing and op_len
+// non-negative.
 int pdt_extract_events(int device, const int32_t* tid, const int32_t* pos,
                        const int32_t* flag, const int32_t* mapq, int64_t n,
                        const int32_t* op_code, const int32_t* op_len,
@@ -1347,30 +1745,18 @@ int pdt_extract_events(int device, const int32_t* tid, const int32_t* pos,
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return (int)err;
     if (m <= 0) return (int)cudaGetLastError();
-    if (n <= 0 || n_targets <= 0) return (int)cudaErrorInvalidValue;
+    if (n <= 0 || n_targets <= 0 || (m + EXT_TILE - 1) / EXT_TILE > INT32_MAX)
+        return (int)cudaErrorInvalidValue;
     cudaStream_t st = (cudaStream_t)stream;
-    const int64_t nblk = (m + TILE - 1) / TILE;
-    u64* excl = reinterpret_cast<u64*>(scratch);
-    u64* read_base = excl + m;
-    u64* tot = read_base + n;
-    ref_len_totals_kernel<<<(unsigned int)nblk, THREADS, 0, st>>>(
-        op_code, op_len, m, tot);
-    exclusive_scan_one_block<u64><<<1, TOTALS_THREADS, 0, st>>>(tot, nblk);
-    ref_offset_kernel<<<(unsigned int)nblk, THREADS, 0, st>>>(
-        op_code, op_len, op_read, m, n, tot, excl, read_base);
-    const unsigned int blocks = point_blocks(m);
-    if (pos64) {
-        emit_events_kernel<int64_t><<<blocks, POINT_THREADS, 0, st>>>(
-            tid, pos, flag, mapq, op_code, op_len, op_read, m, n, offsets,
-            limits, n_targets, flags_mask, min_mapq, excl, read_base,
-            sentinel, (int64_t*)ev_pos, ev_delta);
-    } else {
-        emit_events_kernel<int32_t><<<blocks, POINT_THREADS, 0, st>>>(
-            tid, pos, flag, mapq, op_code, op_len, op_read, m, n, offsets,
-            limits, n_targets, flags_mask, min_mapq, excl, read_base,
-            sentinel, (int32_t*)ev_pos, ev_delta);
-    }
-    return (int)cudaGetLastError();
+    if (pos64)
+        return extract_events_typed<int64_t>(
+            tid, pos, flag, mapq, n, op_code, op_len, op_read, m, offsets,
+            limits, n_targets, flags_mask, min_mapq, sentinel,
+            (int64_t*)ev_pos, ev_delta, scratch, st);
+    return extract_events_typed<int32_t>(
+        tid, pos, flag, mapq, n, op_code, op_len, op_read, m, offsets, limits,
+        n_targets, flags_mask, min_mapq, sentinel, (int32_t*)ev_pos, ev_delta,
+        scratch, st);
 }
 
 // K8 on a group of `nblocks` (1..pdt_decode_enc_max_blocks()) stacked
@@ -1478,11 +1864,13 @@ int pdt_eval_pair_rows(int device, int pos64, const void* pos,
     return (int)cudaGetLastError();
 }
 
-// Events per tile of bucket_events and the most ranges it takes; the
-// wrapper sizes its scratch as world * ceil(n / pdt_bucket_tile())
-// uint32 words.
+// Events per tile of bucket_events, the most ranges it takes, and the
+// int64 words of scratch it takes for n events over `world` ranges.
 int64_t pdt_bucket_tile(void) { return BUCKET_TILE; }
 int64_t pdt_bucket_max_world(void) { return BUCKET_MAX_WORLD; }
+int64_t pdt_bucket_events_scratch(int64_t n, int world) {
+    return bucket_scratch_words(n, world);
+}
 
 // K10's bucketing of n events: pos in the tier's words (int32, uint32
 // bit patterns, or int64), int32 deltas, bounds the world + 1 int64
@@ -1493,7 +1881,7 @@ int pdt_bucket_events(int device, int tier, const void* pos,
                       const int32_t* delta, int64_t n,
                       const int64_t* bounds, int world, void* out_pos,
                       int32_t* out_delta, int32_t* counts, int64_t* sums,
-                      uint32_t* scratch, void* stream) {
+                      int64_t* scratch, void* stream) {
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return (int)err;
     if (world < 1 || world > BUCKET_MAX_WORLD || n < 0 || n > INT32_MAX)

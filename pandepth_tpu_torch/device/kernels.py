@@ -97,10 +97,14 @@ def library() -> ctypes.CDLL:
         vp, i32, i64 = ctypes.c_void_p, ctypes.c_int32, ctypes.c_int64
         lib.pdt_scan_tile.restype = i64
         lib.pdt_scan_tile.argtypes = []
-        for name in ("pdt_sweep_scan_scratch", "pdt_decode_enc_scratch"):
+        for name in ("pdt_sweep_scan_scratch", "pdt_decode_enc_scratch",
+                     "pdt_extract_events_scratch",
+                     "pdt_bucket_events_scratch"):
             getattr(lib, name).restype = i64
         lib.pdt_sweep_scan_scratch.argtypes = [i64]
         lib.pdt_decode_enc_scratch.argtypes = [i64, i64]
+        lib.pdt_extract_events_scratch.argtypes = [i64]
+        lib.pdt_bucket_events_scratch.argtypes = [i64, ctypes.c_int]
         lib.pdt_pack_events.restype = ctypes.c_int
         lib.pdt_pack_events.argtypes = [ctypes.c_int, ctypes.c_int, vp, vp,
                                         i64, vp, vp, vp]
@@ -135,6 +139,7 @@ def library() -> ctypes.CDLL:
                                            vp, vp, i64, vp, vp, vp]
         for name in ("pdt_bucket_tile", "pdt_bucket_max_world",
                      "pdt_sweep_scan_tile", "pdt_decode_enc_tile",
+                     "pdt_extract_events_tile",
                      "pdt_decode_enc_max_blocks"):
             getattr(lib, name).restype = i64
             getattr(lib, name).argtypes = []
@@ -144,6 +149,11 @@ def library() -> ctypes.CDLL:
                                           vp, vp, vp]
         _lib = lib
         return lib
+
+
+def _loaded() -> ctypes.CDLL:
+    """:func:`library`, without taking its lock once it has loaded."""
+    return _lib if _lib is not None else library()
 
 
 def _p(t: torch.Tensor) -> ctypes.c_void_p:
@@ -188,7 +198,7 @@ def pack_events(starts: torch.Tensor, ends: torch.Tensor,
                       dtype=torch.int32 if tier == TIER_I32 else torch.int64)
     delta = torch.empty(2 * m, dtype=torch.int32, device=starts.device)
     if m:
-        lib = library()
+        lib = _loaded()
         _check("pack_events", lib.pdt_pack_events(
             starts.get_device(), tier, _p(starts), _p(ends), m, _p(pos),
             _p(delta), _stream(starts)))
@@ -228,7 +238,7 @@ def sweep_scan(pos_s: torch.Tensor, delta_s: torch.Tensor, min_dep: int,
             raise ValueError("sweep_scan: an output differs from pos_s in "
                              "shape or device")
     if n:
-        lib = library()
+        lib = _loaded()
         scratch = torch.empty(lib.pdt_sweep_scan_scratch(n),
                               dtype=torch.int64, device=dev)
         _check("sweep_scan", lib.pdt_sweep_scan(
@@ -259,7 +269,7 @@ def eval_pair(pos_s: torch.Tensor, depth: torch.Tensor, c_cov: torch.Tensor,
     cover = torch.empty(b, dtype=torch.int64, device=lo.device)
     dsum = torch.empty(b, dtype=torch.int64, device=lo.device)
     if b:
-        lib = library()
+        lib = _loaded()
         _check("eval_pair", lib.pdt_eval_pair(
             pos_s.get_device(), pos64, _p(pos_s), _p(depth), _p(c_cov),
             _p(c_sum), e, int(min_dep), _p(lo), _p(hi), b, _p(cover),
@@ -288,7 +298,7 @@ def eval_boundaries(pos_s: torch.Tensor, depth: torch.Tensor,
     q_cov = torch.empty(b, dtype=torch.int64, device=x.device)
     q_sum = torch.empty(b, dtype=torch.int64, device=x.device)
     if b:
-        lib = library()
+        lib = _loaded()
         _check("eval_boundaries", lib.pdt_eval_boundaries(
             pos_s.get_device(), pos64, _p(pos_s), _p(depth), _p(c_cov),
             _p(c_sum), e, int(min_dep), _p(x), b, _p(q_cov), _p(q_sum),
@@ -307,35 +317,43 @@ def extract_events(tid: torch.Tensor, pos: torch.Tensor, flag: torch.Tensor,
     """K6: a columnar read batch -> (2M,) ``pos_dtype`` positions (starts
     at [0, M), ends at [M, 2M); dead slots at 1 << 62; all clamped to at
     most ``sentinel``) and (2M,) int32 deltas. ``op_read`` must be
-    non-decreasing."""
+    non-decreasing and ``op_len`` non-negative."""
     cols = (tid, pos, flag, mapq, op_code, op_len, op_read)
-    for t in cols:
-        _require("extract_events", t, torch.int32)
-    _require("extract_events", offsets, torch.int64)
-    _require("extract_events", limits, torch.int64)
-    _one_device("extract_events", *cols, offsets, limits)
+    dev = tid.device
+    # one pass over the tensors; _require names the first that fails
+    if dev.type != "cuda" or not all(
+            t.dtype == dt and t.dim() == 1 and t.is_contiguous()
+            and t.device == dev
+            for ts, dt in ((cols, torch.int32),
+                           ((offsets, limits), torch.int64)) for t in ts):
+        for t in cols:
+            _require("extract_events", t, torch.int32)
+        _require("extract_events", offsets, torch.int64)
+        _require("extract_events", limits, torch.int64)
+        _one_device("extract_events", *cols, offsets, limits)
     if pos_dtype not in (torch.int32, torch.int64) \
             or not 0 < sentinel <= torch.iinfo(pos_dtype).max:
         raise ValueError(f"extract_events: sentinel {sentinel} does not "
                          f"fit {pos_dtype}")
     n, m, nt = tid.shape[0], op_code.shape[0], offsets.shape[0]
-    if any(t.shape[0] != n for t in cols[1:4]) \
-            or any(t.shape[0] != m for t in cols[5:]) \
-            or limits.shape[0] != nt or (m and (n == 0 or nt == 0)):
+    if not (pos.shape[0] == flag.shape[0] == mapq.shape[0] == n
+            and op_len.shape[0] == op_read.shape[0] == m
+            and limits.shape[0] == nt) or (m and (n == 0 or nt == 0)):
         raise ValueError("extract_events: inconsistent batch shapes")
-    dev = tid.device
     ev_pos = torch.empty(2 * m, dtype=pos_dtype, device=dev)
     ev_delta = torch.empty(2 * m, dtype=torch.int32, device=dev)
     if m:
-        lib = library()
-        nblk = -(-m // lib.pdt_scan_tile())
-        scratch = torch.empty(m + n + nblk, dtype=torch.int64, device=dev)
+        lib = _loaded()
+        scratch = torch.empty(lib.pdt_extract_events_scratch(m),
+                              dtype=torch.int64, device=dev)
         _check("extract_events", lib.pdt_extract_events(
-            tid.get_device(), _p(tid), _p(pos), _p(flag), _p(mapq), n,
-            _p(op_code), _p(op_len), _p(op_read), m, _p(offsets),
-            _p(limits), nt, int(flags_mask), int(min_mapq),
-            int(pos_dtype == torch.int64), int(sentinel), _p(ev_pos),
-            _p(ev_delta), _p(scratch), _stream(tid)))
+            dev.index, tid.data_ptr(), pos.data_ptr(), flag.data_ptr(),
+            mapq.data_ptr(), n, op_code.data_ptr(), op_len.data_ptr(),
+            op_read.data_ptr(), m, offsets.data_ptr(), limits.data_ptr(),
+            nt, int(flags_mask), int(min_mapq),
+            int(pos_dtype == torch.int64), int(sentinel), ev_pos.data_ptr(),
+            ev_delta.data_ptr(), scratch.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream))
         launches["extract_events"] += 1
     return ev_pos, ev_delta
 
@@ -412,7 +430,7 @@ def decode_enc(codes: Sequence[torch.Tensor],
                          "not fit the event buffer apart")
     if n == 0:
         return
-    lib = library()
+    lib = _loaded()
     most = lib.pdt_decode_enc_max_blocks()
     ps, pd = pos.element_size(), delta.element_size()
     none = ctypes.c_void_p(0)
@@ -477,7 +495,7 @@ def shard_carry(pos2d: torch.Tensor, delta2d: torch.Tensor,
                          f"{bounds.shape[0]} bounds")
     totals = torch.empty(rows, dtype=torch.int64, device=pos2d.device)
     if rows:
-        lib = library()
+        lib = _loaded()
         ntiles = -(-(width - 1) // lib.pdt_scan_tile())
         scratch = torch.empty(rows * ntiles, dtype=torch.int64,
                               device=pos2d.device)
@@ -518,7 +536,7 @@ def eval_pair_rows(pos_s2: torch.Tensor, depth2: torch.Tensor,
     cover = torch.empty(b, dtype=torch.int64, device=lo.device)
     dsum = torch.empty(b, dtype=torch.int64, device=lo.device)
     if b:
-        lib = library()
+        lib = _loaded()
         _check("eval_pair_rows", lib.pdt_eval_pair_rows(
             pos_s2.get_device(), pos64, _p(pos_s2), _p(depth2), _p(c_cov2),
             _p(c_sum2), rows, width, _p(bounds), int(min_dep), _p(lo),
@@ -545,7 +563,7 @@ def bucket_events(pos: torch.Tensor, delta: torch.Tensor,
     _require("bucket_events", bounds, torch.int64)
     _one_device("bucket_events", pos, delta, bounds)
     n, world = pos.shape[0], bounds.shape[0] - 1
-    lib = library()
+    lib = _loaded()
     if delta.shape != pos.shape or n > (1 << 31) - 1 \
             or not 1 <= world <= lib.pdt_bucket_max_world():
         raise ValueError(f"bucket_events: {n} events, {delta.shape[0]} "
@@ -554,9 +572,8 @@ def bucket_events(pos: torch.Tensor, delta: torch.Tensor,
     out_pos, out_delta = torch.empty_like(pos), torch.empty_like(delta)
     counts = torch.empty(world, dtype=torch.int32, device=dev)
     sums = torch.empty(world, dtype=torch.int64, device=dev)
-    ntiles = -(-n // lib.pdt_bucket_tile())
-    scratch = torch.empty(max(world * ntiles, 1), dtype=torch.int32,
-                          device=dev)
+    scratch = torch.empty(lib.pdt_bucket_events_scratch(n, world) if n else 0,
+                          dtype=torch.int64, device=dev)
     _check("bucket_events", lib.pdt_bucket_events(
         pos.get_device(), tier, _p(pos), _p(delta), n, _p(bounds), world,
         _p(out_pos), _p(out_delta), _p(counts), _p(sums), _p(scratch),

@@ -292,6 +292,160 @@ def enc_edge_groups(pos_dt, seed: int = 0):
 
 
 # ---------------------------------------------------------------------
+# the edges of the chained-scan kernels (extract_events and bucket_events)
+
+#: ops per tile of the extract_events kernel and events per tile of the
+#: bucket_events kernel (EXT_TILE and BUCKET_TILE of
+#: csrc/sweep_kernels.cu; chip_smoke.py holds them to the built library's)
+EXTRACT_TILE = 1024
+BUCKET_TILE = 4096
+
+
+def _op_counts(rng, m: int) -> np.ndarray:
+    """Ops per read, 0-8 each as make_batch draws them, summing to m."""
+    counts = rng.randint(0, 9, m + 1)
+    cut = int(np.searchsorted(np.cumsum(counts), m))
+    counts = counts[:cut + 1]
+    counts[-1] -= int(counts.sum()) - m
+    return counts
+
+
+def _reads_for(rng, lengths, n_ops, kept=(), ops=None) -> ReadBatch:
+    """Reads drawn as make_batch draws them, with these op counts; the
+    reads in ``kept`` pass every filter at position 1,000 of contig 0.
+    ``ops`` maps a read to its own (op_code, op_len) arrays."""
+    lengths = np.asarray(lengths, np.int64)
+    n_ops = np.asarray(n_ops, np.int32)
+    n = n_ops.shape[0]
+    tid = rng.randint(-1, lengths.shape[0], n).astype(np.int32)
+    span = np.minimum(lengths[np.maximum(tid, 0)], (1 << 31) - 1000)
+    pos = np.minimum((rng.rand(n) * (span + 400)).astype(np.int64) - 1,
+                     (1 << 31) - 1).astype(np.int32)
+    flag = rng.choice(FLAGS, n).astype(np.int32)
+    mapq = rng.randint(0, 61, n).astype(np.int32)
+    for r in kept:
+        tid[r], pos[r], flag[r], mapq[r] = 0, 1000, 0, 60
+    m = int(n_ops.sum())
+    op_code = rng.randint(0, 9, m).astype(np.int32)
+    op_len = rng.randint(0, 200, m).astype(np.int32)
+    op_len[rng.rand(m) < 0.05] = 0
+    first = np.concatenate([[0], np.cumsum(n_ops)[:-1]])
+    for r, (codes, lens) in (ops or {}).items():
+        op_code[first[r]:first[r] + n_ops[r]] = codes
+        op_len[first[r]:first[r] + n_ops[r]] = lens
+    return ReadBatch(tid=tid, pos=pos, flag=flag, mapq=mapq, n_ops=n_ops,
+                     op_code=op_code, op_len=op_len,
+                     op_read=np.repeat(np.arange(n, dtype=np.int32), n_ops))
+
+
+def extract_edge_batches(lengths, seed: int = 0):
+    """extract_events' tile edges as (name, ReadBatch) on contigs of
+    ``lengths``: 1, a tile - 1, a tile, a tile + 1 and a few tiles of ops;
+    reads that start on a tile's first op and on its last (one of them
+    running into the next tile); a read of more than three tiles of ops
+    (two tiles and more with no read starting in them); zero-op reads
+    between a tile's last op and the next tile's first; JAX's padding
+    (``jax_padded``) across a tile boundary; and a read whose
+    ref-consumed lengths pass 2^32 across a tile boundary (18 D ops of
+    2^28 - 1, then M ops)."""
+    rng = np.random.RandomState(seed)
+    t = EXTRACT_TILE
+    cases = [(f"{m} ops", _reads_for(rng, lengths, _op_counts(rng, m)))
+             for m in (1, t - 1, t, t + 1, 3 * t + 5)]
+    n_ops = np.concatenate([_op_counts(rng, t), _op_counts(rng, t - 1), [1],
+                            _op_counts(rng, t - 1), [2],
+                            _op_counts(rng, 300)])
+    cases.append(("reads start on a tile's first op and on its last",
+                  _reads_for(rng, lengths, n_ops)))
+    head = _op_counts(rng, 50)
+    n_ops = np.concatenate([head, [3 * t + 100], _op_counts(rng, 200)])
+    cases.append(("a read of more than three tiles of ops",
+                  _reads_for(rng, lengths, n_ops, kept=[head.shape[0]])))
+    n_ops = np.concatenate([_op_counts(rng, t), [0, 0, 0],
+                            _op_counts(rng, 500)])
+    cases.append(("zero-op reads at a tile boundary",
+                  _reads_for(rng, lengths, n_ops)))
+    b = _reads_for(rng, lengths, _op_counts(rng, 2 * t + t // 2))
+    cases.append(("JAX's padding across a tile boundary", jax_padded(b)))
+    head = _op_counts(rng, t - 25)
+    n_ops = np.concatenate([head, [40], _op_counts(rng, 100)])
+    codes = np.repeat(np.array([2, 0], np.int32), [18, 22])
+    lens = np.repeat(np.array([(1 << 28) - 1, 100], np.int32), [18, 22])
+    cases.append(("a read's ref lengths past 2^32 across a tile boundary",
+                  _reads_for(rng, lengths, n_ops, kept=[head.shape[0]],
+                             ops={head.shape[0]: (codes, lens)})))
+    return cases
+
+
+def bucket_edge_events(seed: int = 0):
+    """bucket_events' tile edges as (name, pos, delta, pos dtype,
+    bounds): int64 position values of the tier (dead slots with delta 0,
+    half of them at the tier's max), int32 deltas, and the (world + 1,)
+    int64 cuts of ``world`` equal ranges over the tier's span (an event at
+    the span's end goes to the last range). On every tier: 0, 1, a tile
+    - 1, a tile, a tile + 1 and a few tiles of events (a third in
+    coordinate order, the last at the axis's end) over 1, 2, 8, 37 and
+    1,024 ranges; and over 8 ranges a destination change on a tile's
+    first event and on its last, an all-dead tile, a destination empty
+    everywhere, and a hot range (every live event in range 0 but one at
+    the axis's end)."""
+    rng = np.random.RandomState(seed)
+    t = BUCKET_TILE
+    cases = []
+    for pos_dt, span in TIER_SPANS:
+        tier = np.dtype(pos_dt).name
+        sentinel = int(np.iinfo(pos_dt).max)
+
+        def cuts(world):
+            step = -(-span // world)
+            return np.minimum(np.arange(world + 1, dtype=np.int64) * step,
+                              span)
+
+        def events(n, live=1.0):
+            pos = rng.randint(0, span, n).astype(np.int64)
+            delta = rng.choice([-1, 1, 1, 5], n).astype(np.int32)
+            dead = rng.rand(n) >= live
+            delta[dead] = 0
+            pos[dead & (rng.rand(n) < 0.5)] = sentinel
+            return pos, delta
+
+        def in_ranges(b, dst):
+            lo, hi = b[dst], b[dst + 1]
+            return lo + (rng.rand(dst.shape[0]) * (hi - lo)).astype(np.int64)
+
+        for world in (1, 2, 8, 37, 1024):
+            for n in (0, 1, t - 1, t, t + 1, 3 * t + 7):
+                pos, delta = events(n, live=0.9)
+                pos[:n // 3] = np.sort(pos[:n // 3])
+                if n > 1:
+                    pos[-1], delta[-1] = span, 1
+                cases.append((f"{tier} {n} events, {world} ranges", pos,
+                              delta, pos_dt, cuts(world)))
+        b = cuts(8)
+        dst = np.concatenate([np.zeros(t, np.int64), np.ones(t - 1, np.int64),
+                              [2], np.full(t, 3), rng.randint(4, 8, 100)])
+        cases.append((f"{tier} a destination change on a tile's first event "
+                      f"and on its last, 8 ranges", in_ranges(b, dst),
+                      rng.choice([-1, 1, 2], dst.shape[0]).astype(np.int32),
+                      pos_dt, b))
+        pos, delta = events(3 * t)
+        delta[t:2 * t] = 0
+        pos[t:2 * t:2] = sentinel
+        cases.append((f"{tier} an all-dead tile, 8 ranges", pos, delta,
+                      pos_dt, b))
+        dst = rng.choice([0, 1, 2, 4, 5, 6, 7], 2 * t + 9)
+        pos, delta = events(dst.shape[0], live=0.9)
+        pos[delta != 0] = in_ranges(b, dst)[delta != 0]
+        cases.append((f"{tier} range 3 empty everywhere, 8 ranges", pos,
+                      delta, pos_dt, b))
+        pos, delta = events(2 * t + 5, live=0.9)
+        pos[delta != 0] = rng.randint(0, 100, int((delta != 0).sum()))
+        pos[-1], delta[-1] = span, 1
+        cases.append((f"{tier} a hot range, 8 ranges", pos, delta, pos_dt, b))
+    return cases
+
+
+# ---------------------------------------------------------------------
 # the golden fixtures (tests/fixtures.py)
 
 CONTIGS = [("chr1", 5000), ("chr2", 3200), ("ctgM", 700)]

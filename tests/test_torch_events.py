@@ -17,6 +17,7 @@ from pandepth_tpu.device.events import extract_events as jax_extract
 from pandepth_tpu.device.hosteval import host_extract_events, pos_dtype_for
 from pandepth_tpu.device.layout import GenomeLayout
 from pandepth_tpu.io.bam import ReadBatch
+from pandepth_tpu_torch import synth
 from pandepth_tpu_torch.device import events
 from pandepth_tpu_torch.device.convert import device_pos_dtype
 from pandepth_tpu_torch.synth import jax_padded, make_batch
@@ -99,6 +100,68 @@ def test_extract_events_engine_tier_matches_jax(tier):
     assert pos.dtype == (np.int32 if tier == "int32" else np.int64)
     np.testing.assert_array_equal(jpos, pos.astype(np.int64))
     np.testing.assert_array_equal(jdelta, delta)
+
+
+EDGE_NAMES = [name for name, _ in synth.extract_edge_batches([5000])]
+
+
+@pytest.mark.parametrize("case", range(len(EDGE_NAMES)), ids=EDGE_NAMES)
+@pytest.mark.parametrize("tier", sorted(LAYOUTS))
+def test_extract_events_tile_edges_match_jax(tier, case):
+    """The edges of the extract_events kernel's tiles and look-back (the
+    cases chip_smoke.py holds the kernel to its twin on), as JAX's int64
+    output and as the engine's tier."""
+    lay = GenomeLayout(np.array(LAYOUTS[tier], np.int64))
+    _, b = synth.extract_edge_batches(lay.lengths, seed=12)[case]
+    want = run_jax(b, lay, 0)
+    _assert_same(want, run_port(b, lay, 0))
+    np_dt = pos_dtype_for(lay.total)
+    sent = int(np.iinfo(np_dt).max)
+    pos, delta = run_port(b, lay, 0, sentinel=sent,
+                          pos_dtype=device_pos_dtype(np_dt))
+    np.testing.assert_array_equal(
+        np.minimum(want[0], sent).astype(np_dt).astype(np.int64),
+        pos.astype(np.int64))
+    np.testing.assert_array_equal(want[1], delta)
+
+
+def _heads(op_read: np.ndarray) -> np.ndarray:
+    return np.flatnonzero(np.diff(op_read, prepend=-1) != 0)
+
+
+def test_extract_edge_batches_reach_their_edges():
+    """Each case of ``synth.extract_edge_batches`` puts reads where its
+    name says, relative to the kernel's tiles."""
+    t = synth.EXTRACT_TILE
+    sizes = set()
+    for name, b in synth.extract_edge_batches(LAYOUTS["uint32"], seed=12):
+        r, m = b.op_read, b.n_total_ops
+        sizes.add(m)
+        heads = set(_heads(r).tolist())
+        assert np.all(np.diff(r) >= 0) and np.all(b.op_len >= 0)
+        assert int(b.n_ops.sum()) == m or "padding" in name
+        if "first op" in name:
+            assert {t, 2 * t - 1, 2 * t, 3 * t - 1} <= heads
+            assert 3 * t not in heads
+        elif "three tiles" in name:
+            headless = [k for k in range(-(-m // t))
+                        if not heads & set(range(k * t, (k + 1) * t))]
+            assert len(headless) >= 2
+        elif "zero-op" in name:
+            assert r[t] - r[t - 1] > 1 and t in heads
+        elif "padding" in name:
+            real = int(b.n_ops.sum())
+            assert m == 4 * t and real < 3 * t and (b.op_len[real:] == 0).all()
+        elif "2^32" in name:
+            ref = b.op_len.astype(np.int64) \
+                * np.isin(b.op_code, [0, 2, 3, 7, 8])   # M D N = X
+            per_read = np.bincount(r, weights=ref)
+            big = int(np.argmax(per_read))
+            assert per_read[big] > 1 << 32
+            ops = np.flatnonzero(r == big)
+            assert ops[0] < t <= ops[-1]
+            assert ref[ops[ops < t]].sum() > 1 << 32
+    assert {1, t - 1, t, t + 1} <= sizes
 
 
 def test_extract_events_matches_host_twin():

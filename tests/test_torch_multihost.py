@@ -50,6 +50,7 @@ from pandepth_tpu.io.bam import ReadBatch
 from pandepth_tpu.sharding import mesh as jax_mesh
 from pandepth_tpu.sharding.multihost import \
     MultihostCoverageEngine as JaxMultihost
+from pandepth_tpu_torch import synth
 from pandepth_tpu_torch.cli import main as port_main
 from pandepth_tpu_torch.device import kernels
 from pandepth_tpu_torch.io import native
@@ -535,6 +536,73 @@ def test_bucket_events_reference_matches_numpy(tier, world, kind):
         np.testing.assert_array_equal(want[2], got[2].numpy())
         np.testing.assert_array_equal(want[3], got[3].numpy())
         assert got[2].dtype == torch.int32 and got[3].dtype == torch.int64
+
+
+BUCKET_EDGES = synth.bucket_edge_events(seed=7)
+
+
+@pytest.mark.parametrize("case", range(len(BUCKET_EDGES)),
+                         ids=[c[0] for c in BUCKET_EDGES])
+def test_bucket_events_tile_edges_match_jax(case):
+    """The edges of the bucket_events kernel's tiles and look-back (the
+    cases chip_smoke.py holds the kernel to its twin on), through the
+    twin: over at most 8 ranges against JAX's ``_bucket_exchange`` with
+    every event on one rank (the events each range receives, in order,
+    and the carry), over more against numpy; and against numpy's counts
+    and sums."""
+    name, pos, delta, np_dt, bounds = BUCKET_EDGES[case]
+    tier = np.dtype(np_dt).name
+    world = bounds.shape[0] - 1
+    got = mesh.bucket_events(torch.from_numpy(_tier_words(pos, tier)),
+                             torch.from_numpy(delta),
+                             torch.from_numpy(bounds), TIER_OF[tier][1])
+    n = int(got[2].sum())
+    want = _numpy_bucket(pos, delta, bounds)
+    np.testing.assert_array_equal(want[2], got[2].numpy())
+    np.testing.assert_array_equal(want[3], got[3].numpy())
+    if world <= 8:
+        none = (pos[:0], delta[:0])
+        recv, carry = _jax_exchange([(pos, delta)] + [none] * (world - 1),
+                                    bounds, tier)
+        want = (np.concatenate([p for p, _ in recv]).astype(np.int64),
+                np.concatenate([d for _, d in recv]))
+        assert [p.shape[0] for p, _ in recv] == got[2].tolist()
+        sums = got[3].numpy()
+        assert [_int32_wrap(int(sums[:r].sum())) for r in range(world)] \
+            == [int(c) for c in carry]
+    np.testing.assert_array_equal(_tier_words(want[0], tier),
+                                  got[0][:n].numpy())
+    np.testing.assert_array_equal(want[1], got[1][:n].numpy())
+
+
+def test_bucket_edge_events_reach_their_edges():
+    """Each case of ``synth.bucket_edge_events`` puts its events where its
+    name says, relative to the kernel's tiles and the ranges."""
+    t = synth.BUCKET_TILE
+    sizes, worlds = set(), set()
+    for name, pos, delta, np_dt, bounds in BUCKET_EDGES:
+        world = bounds.shape[0] - 1
+        worlds.add(world)
+        sizes.add(pos.shape[0])
+        live = delta != 0
+        dest = np.minimum(np.searchsorted(bounds[1:-1], pos, side="right"),
+                          world - 1)
+        if "change" in name:
+            assert dest[t] != dest[t - 1]
+            assert dest[2 * t - 1] != dest[2 * t - 2]
+            assert live.all()
+        elif "all-dead" in name:
+            assert not live[t:2 * t].any() and live[:t].any()
+        elif "empty" in name:
+            assert not (live & (dest == 3)).any()
+            assert all((live & (dest == d)).any() for d in (0, 2, 4, 7))
+        elif "hot" in name:
+            assert (dest[live][:-1] == 0).all() and dest[-1] == world - 1
+        elif pos.shape[0] > 1:
+            assert pos[-1] == bounds[-1] and live[-1]
+            assert (~live).any() and (pos[~live] == np.iinfo(np_dt).max).any()
+    assert {0, 1, t - 1, t, t + 1} <= sizes
+    assert {1, 2, 8, 1024} <= worlds
 
 
 @pytest.mark.parametrize("kind", list(VARIANTS))

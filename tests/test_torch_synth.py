@@ -6,6 +6,7 @@ bench.py's reads unsorted, and the golden fixtures of tests/fixtures.py.
 """
 
 import os
+import time
 
 import numpy as np
 import pytest
@@ -73,7 +74,10 @@ def test_unsorted_bam_is_bench_reads_unsorted(tmp_path):
 @pytest.mark.parametrize("name", ["golden.bam", "golden.bam.bai", "t.bed",
                                   "t.gff", "safe.gff", "ref.fa",
                                   "golden.cram"])
-def test_golden_inputs_are_test_fixtures(tmp_path, name):
+def test_golden_inputs_are_test_fixtures(tmp_path, monkeypatch, name):
+    # a CRAM block is gzip-compressed, and gzip stamps the current second:
+    # one second for both writers
+    monkeypatch.setattr(time, "time", lambda: 1_700_000_000.0)
     d, ref = tmp_path / "port", tmp_path / "ref"
     d.mkdir()
     ref.mkdir()

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Time the port's K2 ``sweep_scan`` and K8 ``decode_enc`` kernels at the
-chr path's shapes, on one NVIDIA GPU, for the ``pandepth_tpu_torch`` of a
+"""Time the port's look-back kernels (K2 ``sweep_scan``, K8
+``decode_enc``, K6 ``extract_events``, K10 ``bucket_events``) at the main
+paths' shapes, on one NVIDIA GPU, for the ``pandepth_tpu_torch`` of a
 given checkout:
 
     python3 tools/kernel_ab.py [--root DIR] [--iters N] [--out FILE]
@@ -13,15 +14,26 @@ run both in turns (A, B, B, A). The timing is ``chip_smoke.py``'s own
 ``device_ms``: the same calls' device time under torch.profiler, which
 leaves out the host's gaps between launches, with the kernels and
 memsets a call puts on the card), taken from this repository's
-``chip_smoke.py`` whatever the root. The inputs are made on the card from
-fixed seeds, the same for every root:
+``chip_smoke.py`` whatever the root; beside them each device op's own
+time and count per call, by name, and the host's time per call
+(``host_ms``: a host clock around 100 calls with no synchronisation,
+what the wrapper costs the host). The inputs are made from fixed seeds,
+the same for every root:
 
 - sweep_scan: 15,199,506 sorted uint32-tier events (the chr fixture's
   count; int64 words, positions below 3e9, deltas of +-1), min_dep 1, no
   wrap18;
 - decode_enc: the encoded chr path's const u16 group, blocks of 8 and 6
   windows of 2^19 slots with 8,192 escape entries each (three used),
-  through ``sweep.decode_const_group`` as ``chip_smoke.py`` times it.
+  through ``sweep.decode_const_group`` as ``chip_smoke.py`` times it;
+- extract_events: 2^20 reads of ``synth.make_batch`` on ``synth.GENOME``
+  (uint32 tier, int64 output, -x 1796, -Q 0) as two batches: one op of
+  150M per read (the CIGAR feed's shape on the fixture; seed 1, the
+  reads drawn with no ops) and the seeded multi-op batch (seed 9, 0-8
+  ops per read, every op code);
+- bucket_events: 15,199,506 uint32-tier events (7,599,753 sorted 150 bp
+  reads' starts, then their ends, on the genome's layout) over 2 and 8
+  ranges (``layout.shard_bounds``).
 
 Each kernel is first held array-equal to its plain twin. Prints one JSON
 line, and appends it to the file ``--out`` names, if given.
@@ -37,13 +49,15 @@ import sys
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, HERE)
-from chip_smoke import cuda_ms, device_ms  # noqa: E402
+from chip_smoke import (bucket_defined, cuda_ms, device_ms,  # noqa: E402
+                        host_ms)
 
 sys.path.remove(HERE)
 
 N_EVENTS = 15_199_506
 CAP, CE, ROWS = 1 << 19, 8192, (8, 6)
 U32_MAX = 0xFFFFFFFF
+N_READS = 1 << 20
 
 
 def sweep_inputs(dev):
@@ -85,12 +99,88 @@ def decode_group(dev):
     return tuple(codes), tuple(excs), tuple(slots), bases, lens, ns
 
 
-def timed(fn, want, iters: int) -> dict:
-    same = all(a.equal(b) for a, b in zip(fn(), want))
+def genome_layout():
+    import numpy as np
+
+    from pandepth_tpu_torch import synth
+    from pandepth_tpu_torch.device.layout import GenomeLayout
+
+    return GenomeLayout(np.array([g[1] for g in synth.GENOME], np.int64))
+
+
+def extract_inputs(dev, multi: bool):
+    """The seven int32 columns of a 2^20-read batch and the layout's
+    offsets and limits, on the card."""
+    import numpy as np
+    import torch
+
+    from pandepth_tpu_torch import synth
+
+    lay = genome_layout()
+    if multi:
+        b = synth.make_batch(lay.lengths, N_READS, seed=9)
+        ops = (b.op_code, b.op_len, b.op_read)
+    else:
+        b = synth.make_batch(lay.lengths, N_READS, seed=1, max_ops=0)
+        ops = (np.zeros(N_READS, np.int32), np.full(N_READS, 150, np.int32),
+               np.arange(N_READS, dtype=np.int32))
+    cols = (b.tid, b.pos, b.flag, b.mapq) + ops
+    return ([torch.from_numpy(np.ascontiguousarray(c, np.int32)).to(dev)
+             for c in cols],
+            torch.from_numpy(lay.offsets).to(dev),
+            torch.from_numpy(lay.limits).to(dev))
+
+
+def bucket_inputs(dev):
+    """15,199,506 uint32-tier events as int32 words: sorted reads' starts,
+    then their ends."""
+    import torch
+
+    lay = genome_layout()
+    g = torch.Generator(device=dev).manual_seed(3)
+    starts = torch.sort(torch.randint(0, int(lay.total) - 200,
+                                      (N_EVENTS // 2,), generator=g,
+                                      device=dev, dtype=torch.int64))[0]
+    pos = torch.cat([starts, starts + 150])
+    delta = torch.ones(N_EVENTS // 2, dtype=torch.int32, device=dev)
+    words = torch.where(pos >= 1 << 31, pos - (1 << 32), pos).to(torch.int32)
+    return lay, words, torch.cat([delta, -delta])
+
+
+def device_ops(fn, iters: int) -> dict:
+    """Each device op's own time and count per call, by name, under
+    torch.profiler after a warm-up call."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key[:80]: {"ms": e.self_device_time_total / 1e3 / iters,
+                         "count": e.count / iters}
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA
+            and e.self_device_time_total > 0
+            and e.key != "Activity Buffer Request"}
+
+
+def timed(fn, want, iters: int, prefix=None) -> dict:
+    """``fn``'s outputs against the twin's ``want`` (each cut by
+    ``prefix`` to what is compared, if given), then its times."""
+    got = fn()
+    if prefix is not None:
+        got, want = prefix(got), prefix(want)
+    same = all(a.equal(b) for a, b in zip(got, want))
     ms = cuda_ms(fn, iters)
     dms, nk, nm = device_ms(fn, iters)
     return {"equal_to_twin": same, "ms": ms, "device_ms": dms,
-            "kernels_per_call": nk, "memsets_per_call": nm}
+            "kernels_per_call": nk, "memsets_per_call": nm,
+            "host_ms": host_ms(fn), "ops": device_ops(fn, iters)}
 
 
 def main() -> int:
@@ -106,7 +196,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("kernel_ab: no CUDA device", file=sys.stderr)
         return 1
-    from pandepth_tpu_torch.device import kernels, sweep
+    from pandepth_tpu_torch.device import events, kernels, sweep
+    from pandepth_tpu_torch.sharding import mesh
 
     if not kernels.SOURCE.is_relative_to(root):
         print(f"kernel_ab: imported {kernels.SOURCE}, not from {root}",
@@ -131,6 +222,27 @@ def main() -> int:
     out["decode_enc"] = {"windows": sum(ROWS), "blocks": len(ROWS), **timed(
         lambda: sweep.decode_const_group(*grp, pos_max=U32_MAX), want,
         args.iters)}
+    del grp, want
+
+    for name, multi in (("extract_events", False),
+                        ("extract_events_multi_op", True)):
+        cols, offsets, limits = extract_inputs(dev, multi)
+        xargs = (*cols, offsets, limits, 1796, 0, U32_MAX, torch.int64)
+        want = events.extract_events_reference(*xargs)
+        out[name] = {"reads": N_READS, "cigar_ops": int(cols[4].numel()),
+                     **timed(lambda: kernels.extract_events(*xargs), want,
+                             args.iters)}
+        del cols, xargs, want
+
+    lay, words, dl = bucket_inputs(dev)
+    for world in (2, 8):
+        bounds = torch.from_numpy(lay.shard_bounds(world)).to(dev)
+        want = mesh.bucket_events_reference(words, dl, bounds,
+                                            kernels.TIER_U32)
+        out[f"bucket_events_{world}"] = {"events": N_EVENTS, **timed(
+            lambda: kernels.bucket_events(words, dl, bounds,
+                                          kernels.TIER_U32),
+            want, args.iters, bucket_defined)}
     line = json.dumps(out)
     print(line, flush=True)
     if args.out:
@@ -138,8 +250,8 @@ def main() -> int:
                     exist_ok=True)
         with open(args.out, "a") as fh:
             fh.write(line + "\n")
-    return 0 if out["sweep_scan"]["equal_to_twin"] \
-        and out["decode_enc"]["equal_to_twin"] else 1
+    return 0 if all(v["equal_to_twin"] for v in out.values()
+                    if isinstance(v, dict)) else 1
 
 
 if __name__ == "__main__":
