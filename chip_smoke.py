@@ -75,16 +75,33 @@ see :func:`worker`.) Phases, one line each; any failure exits non-zero:
             2^32 across one; bucket_events at 0, 1, a tile - 1, a tile, a
             tile + 1 and a few tiles of events over 1, 2, 8, 37 and 1024
             ranges, a destination change on a tile's first and last
-            event, an all-dead tile, a range empty everywhere; 50
-            launches of each on its main path's inputs (the chr path's;
-            extract_events on both CIGAR batches), every output
-            array-equal to the first and to the twin; the device time of
-            each (torch.profiler) beside its CUDA-event time and its
-            host time per call, with the kernels and memsets a call puts
-            on the card; torch.cumsum of the chr path's deltas and piece
-            lengths as a yardstick for one of sweep_scan's sums; the
-            card's time per dependent load (one eval_boundaries query on
-            2 and 2^24 events), for the latency-bound kernels' bound
+            event, an all-dead tile, a range empty everywhere. The two
+            search kernels on the edges of their searches and tiles
+            (synth.search_edge_cases and rows_edge_segments, after
+            holding the staging window to the library's): eval_pair at
+            1, 2, 15, 16, 17, 255, 256, 257 and a few tiles' worth of
+            events, boundaries before, on, beside and past the events,
+            zero-length and reversed segments, a run of equal positions
+            longer than a 16-way round's stride, dense tiles wider and
+            narrower than the window, unsorted segments; eval_pair_rows
+            at segments crossing no row, one, two and every row and
+            clips on a range's ends, and over 5,000 rows (more cuts than
+            it stages in shared memory). 50 launches of each of those six
+            kernels on its main path's inputs (the chr path's, the 8-row
+            chr block's; extract_events on both CIGAR batches), every
+            output array-equal to the first and to the twin; the device
+            time of each (torch.profiler) beside its CUDA-event time and
+            its host time per call, with the kernels and memsets a call
+            puts on the card, eval_pair also on the bed path's 200,000
+            regions and a 1M-window chunk of a -w 150 grid over the chr
+            path's state (and of a -w 1500 grid, whose tiles span more
+            events than the window), beside torch.searchsorted of the same
+            boundaries (the search alone) as a yardstick; torch.cumsum of
+            the chr path's deltas and piece lengths as a yardstick for
+            one of sweep_scan's sums; the card's time per dependent load
+            (one eval_boundaries query on 2 and 2^24 events), and each
+            timed search shape's bound restated as the larger of its
+            byte bound and its dependent loads
 5. golden   the port's CLI on cuda over the golden fixtures: chr, bed,
             gene and gene_gc from the BAM, native with encoded windows,
             native with raw pairs and with PANDEPTH_NO_NATIVE=1, and chr
@@ -110,6 +127,10 @@ see :func:`worker`.) Phases, one line each; any failure exits non-zero:
             bed     -b with the exome BED (indexed fetch windows, ranged
                     native stream, PANDEPTH_ENC=0); the table byte-equal
                     to the host sweep's
+            win     -w 1500 (2M windows, the card's default feed): more
+                    windows than one 1M-query chunk, so the engine keeps
+                    its state and runs eval_pair chunk by chunk; the table
+                    byte-equal to the host sweep's
             list    the .list of the 8M-read fixture and the two 4M-read
                     samples (16M reads pooled, encoded windows); the
                     table byte-equal to the host sweep's
@@ -138,11 +159,11 @@ see :func:`worker`.) Phases, one line each; any failure exits non-zero:
             mesh_step sharded_coverage_step on the first batch's reads,
                     split over 2 gloo ranks on cuda:0; both ranks' (cover,
                     dsum) equal to the step path's
-7. profile  the cigar, bed, chr_enc, chr and chr_sharded runs once more
-            under torch.profiler: host wall, device time (the sum of
-            every op's self device time), the device's busy share, the
-            host->device copies' time, the largest ops, the peak device
-            memory; tables byte-equal to phase 6's
+7. profile  the cigar, bed, chr_enc, win, chr and chr_sharded runs once
+            more under torch.profiler: host wall, device time (the sum
+            of every op's self device time), the device's busy share,
+            the host->device copies' time, the largest ops, the peak
+            device memory; tables byte-equal to phase 6's
 
 Then the card's line once more, one JSON line of kernel results, and
 last ``{"ok": true, "device": {...}}``. This process and its workers
@@ -180,6 +201,7 @@ PATHS = {"chr": ("pack_events", "sweep_scan", "eval_pair"),
          "cigar": ("extract_events", "sweep_scan", "eval_pair"),
          "step": ("extract_events", "sweep_scan", "eval_boundaries"),
          "bed": ("pack_events", "sweep_scan", "eval_pair"),
+         "win": ("decode_enc", "sweep_scan", "eval_pair"),
          "list": ("decode_enc", "sweep_scan", "eval_pair"),
          "paf": ("pack_events", "sweep_scan", "eval_pair"),
          "unsorted": ("pack_events", "sweep_scan", "eval_pair"),
@@ -191,6 +213,8 @@ PATHS = {"chr": ("pack_events", "sweep_scan", "eval_pair"),
 N_READS = 8_000_000
 BATCH_READS = 1 << 20   # RunConfig.max_reads_per_batch
 N_BED = 200_000
+WIN_BP = 1500           # -w of the win path: 2M windows of the 3 Gb layout
+QUERY_CHUNK = 1 << 20   # CoverageEngine.segment_stats' chunk
 SHARD_ROWS = 8          # rows of the sharded runs on the one card
 RANGES = (1, 2, 4, 8)   # bucket_events' ranges on the chr path's events
 JOB_SECONDS = 300       # each spawned job's limit, all its ranks killed
@@ -217,6 +241,26 @@ def search_bytes(n: int, word: int) -> int:
     events: a binary search's ceil(log2 n) + 1 position words, then the
     piece's depth (4 B) and two int64 prefixes."""
     return (max(n - 1, 1).bit_length() + 1) * word + 20
+
+
+def eval_bytes(n: int, word: int, b: int, span: int) -> int:
+    """The bytes eval_pair needs for ``b`` segments over ``n`` events of
+    ``word`` bytes, their boundaries' lower bounds ``span`` events apart
+    at most: each boundary read and each (cover, dsum) written once, and
+    the state's words the searches need, the fewer of every boundary's
+    own search (:func:`search_bytes`) and one read of the span (a
+    position, a depth and two prefixes an event)."""
+    return b * (2 * word + 16) + min(2 * b * search_bytes(n, word),
+                                     (span + 1) * (word + 20))
+
+
+def search_rounds(n: int) -> int:
+    """Dependent loads of a 16-lane search of ``n`` words and its gather:
+    ceil(log17(n + 1)) rounds, then one."""
+    rounds = 0
+    while 17 ** rounds < n + 1:
+        rounds += 1
+    return rounds + 1
 
 
 def device_ms(fn, iters: int = 10, tries: int = 3):
@@ -419,6 +463,9 @@ class KernelCheck:
         self.bound_ms = {}
         self.library_ms = {}
         self.notes = []
+        # (kernel, what, bytes bound ms, dependent loads) of each timed
+        # shape of the search kernels, for their dependent-round bound
+        self.searches = []
 
     def compare(self, name: str, got, want, what: str) -> None:
         import torch
@@ -464,6 +511,46 @@ class KernelCheck:
                           f"host {hms:.4f} ms a call unsynchronised), "
                           f"{nk:g} kernel(s) and {nm:g} memset(s) a call")
 
+    def pair_case(self, state, min_dep: int, lo, hi, what: str,
+                  note: str = "") -> None:
+        """eval_pair held array-equal to its twin on ``state`` (pos_s,
+        depth, c_cov, c_sum) at ``lo``/``hi``, then timed (:meth:`time`:
+        the kernel's JSON entry, or a note with ``note``), its device and
+        host time per call, and torch.searchsorted of the same
+        boundaries, the search alone, as a yardstick."""
+        import torch
+
+        from pandepth_tpu_torch.device import kernels, sweep
+
+        pos_s = state[0]
+        n, w, b = pos_s.numel(), pos_s.element_size(), lo.numel()
+        x = torch.cat([lo, hi])
+        ends = torch.searchsorted(pos_s, torch.stack([x.min(), x.max()]))
+        nbytes = eval_bytes(n, w, b, int(ends[1] - ends[0]))
+        kernel = lambda: kernels.eval_pair(*state, min_dep, lo, hi)  # noqa
+        twin = lambda: sweep.eval_pair_reference(*state, min_dep, lo,  # noqa
+                                                 hi)
+        self.compare("eval_pair", kernel(), twin(), note or what)
+        ms = self.time("eval_pair", kernel, twin, nbytes, note)
+        self.device_note("eval_pair", kernel, note or what, ms)
+        ss = cuda_ms(lambda: torch.searchsorted(pos_s, x))
+        self.notes.append(f"yardstick for eval_pair's search (not "
+                          f"library_ms): torch.searchsorted of the {2 * b} "
+                          f"boundaries of {note or what}: {ss:.4f} ms")
+        self.searches.append(("eval_pair", note or what,
+                              nbytes / HBM_BYTES_PER_S * 1e3,
+                              search_rounds(n)))
+
+    def round_notes(self, ns_per_load: float) -> None:
+        """Each timed search shape's bound restated: the larger of its
+        byte bound and its dependent loads at ``ns_per_load``."""
+        for name, what, bytes_ms, loads in self.searches:
+            lat_ms = loads * ns_per_load * 1e-6
+            self.notes.append(
+                f"{name} bound on {what}: bytes {bytes_ms:.6f} ms, "
+                f"{loads} dependent loads {lat_ms:.6f} ms: "
+                f"{max(bytes_ms, lat_ms):.6f} ms")
+
     def time(self, name: str, kernel, twin, nbytes: int,
              note: str = "") -> float:
         """The kernel's and the twin's times, and the bound: the least
@@ -482,7 +569,8 @@ class KernelCheck:
         return ms
 
     def sweep_case(self, raw_s, raw_e, sentinel: int, lo, hi, min_dep: int,
-                   wrap18: bool, what: str, timed: bool = False) -> None:
+                   wrap18: bool, what: str, timed: bool = False,
+                   pair_note: str = "") -> None:
         """Staged start/end pairs through pack_events and its twin, then
         :meth:`state_case` on the packed events."""
         from pandepth_tpu_torch.device import kernels, sweep
@@ -500,12 +588,17 @@ class KernelCheck:
                                                           sentinel),
                       2 * m * (raw_s.element_size() + got[0].element_size()
                                + 4))
-        self.state_case(*got, sentinel, lo, hi, min_dep, wrap18, what, timed)
+        self.state_case(*got, sentinel, lo, hi, min_dep, wrap18, what, timed,
+                        pair_note)
 
     def state_case(self, pos, delta, sentinel: int, lo, hi, min_dep: int,
-                   wrap18: bool, what: str, timed: bool = False) -> None:
+                   wrap18: bool, what: str, timed: bool = False,
+                   pair_note: str = "") -> None:
         """Events through the library's stable sort, then sweep_scan,
-        eval_pair and eval_boundaries and their twins."""
+        eval_pair and eval_boundaries and their twins; with ``timed``
+        sweep_scan and eval_pair timed (eval_pair also at 1M-window chunks
+        of -w 150 and -w 1500 grids from position 0), with ``pair_note``
+        eval_pair timed for a note."""
         import torch
 
         from pandepth_tpu_torch.device import kernels, sweep
@@ -523,9 +616,12 @@ class KernelCheck:
         self.compare("eval_pair", got, want, what)
         self.boundaries_case(pos_s, depth, c_cov, c_sum, min_dep,
                              torch.cat([lo, hi]), what)
+        state = (pos_s, depth, c_cov, c_sum)
+        if pair_note:
+            self.pair_case(state, min_dep, lo, hi, what, pair_note)
         if not timed:
             return
-        n, w, b = pos_s.numel(), pos_s.element_size(), lo.numel()
+        n, w = pos_s.numel(), pos_s.element_size()
         scan = lambda: kernels.sweep_scan(pos_s, delta_s, min_dep,  # noqa
                                           wrap18, sentinel)
         self.repeat("sweep_scan", scan, scan_want, what)
@@ -542,12 +638,16 @@ class KernelCheck:
                           f"(not library_ms): torch.cumsum of the {n} int32 "
                           f"deltas {cum32:.4f} ms, of the {n} int64 piece "
                           f"lengths {cum64:.4f} ms")
-        self.time("eval_pair",
-                  lambda: kernels.eval_pair(pos_s, depth, c_cov, c_sum,
-                                            min_dep, lo, hi),
-                  lambda: sweep.eval_pair_reference(pos_s, depth, c_cov,
-                                                    c_sum, min_dep, lo, hi),
-                  2 * b * (w + 8 + search_bytes(n, w)))
+        self.repeat("eval_pair",
+                    lambda: kernels.eval_pair(*state, min_dep, lo, hi),
+                    want, what)
+        self.pair_case(state, min_dep, lo, hi, what)
+        for bp, mb in ((150, "150 Mb"), (1500, "1.5 Gb")):
+            win = bp * torch.arange(1 << 20, dtype=pos_s.dtype,
+                                    device=pos_s.device)
+            self.pair_case(state, min_dep, win, win + bp, what,
+                           f"a 1M-window chunk of a -w {bp} grid (the first "
+                           f"{mb}), {what}")
         sort_ms = cuda_ms(lambda: torch.sort(pos, stable=True))
         self.notes.append(f"library stable sort of the native main path's "
                           f"{pos.shape[0]} events: {sort_ms:.4f} ms")
@@ -660,9 +760,10 @@ def sweep_edge_cases(check: KernelCheck, dev) -> None:
 
     lib = kernels.library()
     tiles = (lib.pdt_sweep_scan_tile(), lib.pdt_decode_enc_tile(),
-             lib.pdt_extract_events_tile(), lib.pdt_bucket_tile())
+             lib.pdt_extract_events_tile(), lib.pdt_bucket_tile(),
+             lib.pdt_eval_pair_win())
     want = (synth.SWEEP_TILE, synth.DEC_TILE, synth.EXTRACT_TILE,
-            synth.BUCKET_TILE)
+            synth.BUCKET_TILE, synth.SEARCH_WIN)
     if tiles != want:
         fail("kernels", f"the library's tiles {tiles} are not synth's "
                         f"{want}: the edge cases miss the tile boundaries")
@@ -709,6 +810,36 @@ def sweep_edge_cases(check: KernelCheck, dev) -> None:
                                      f"{np.dtype(np_dt).name} "
                                      f"pairs={n_pairs} min_dep={min_dep} "
                                      f"wrap18={wrap18}")
+
+
+def search_edge_cases(check: KernelCheck, dev) -> None:
+    """eval_pair on the edges of its cooperative search and dense tiles
+    (``synth.search_edge_cases``, the cases tests/test_torch_sweep.py
+    holds the twin to JAX on): 1, 2, 15, 16, 17, 255, 256 and 257 events
+    and a few tiles' worth on every tier, boundaries before, on, beside
+    and past the events, zero-length and reversed segments, a run of
+    equal positions longer than a 16-way round's stride, and 40,000
+    sorted segments whose tiles span more and fewer events than the
+    staging window, then shuffled; after the library's stable sort and
+    sweep_scan."""
+    import numpy as np
+    import torch
+
+    from pandepth_tpu_torch import synth
+    from pandepth_tpu_torch.device import kernels, sweep
+    from pandepth_tpu_torch.device.convert import positions_to_words
+
+    for name, pos, delta, pos_dt, min_dep, lo, hi in \
+            synth.search_edge_cases(seed=6):
+        p = torch.from_numpy(positions_to_words(pos, pos_dt)).to(dev)
+        pos_s, order = torch.sort(p, stable=True)
+        delta_s = torch.from_numpy(delta).to(dev)[order]
+        state = (pos_s, *kernels.sweep_scan(
+            pos_s, delta_s, min_dep, False, int(np.iinfo(pos_dt).max)))
+        q = [torch.from_numpy(x).to(dev).to(pos_s.dtype) for x in (lo, hi)]
+        check.compare("eval_pair", kernels.eval_pair(*state, min_dep, *q),
+                      sweep.eval_pair_reference(*state, min_dep, *q),
+                      f"search edge: {name}, min_dep={min_dep}")
 
 
 def enc_edge_cases(check: KernelCheck, dev) -> None:
@@ -879,11 +1010,17 @@ def shard_case(check: KernelCheck, eng, lo, hi, what: str,
                                                        left),
                    rows_n * width * 4 + 8 * left.numel()
                    + rows_n * (8 + 8 + 4 + word))
-        check.time("eval_pair_rows",
-                   lambda: kernels.eval_pair_rows(*args),
-                   lambda: steps.eval_pair_rows_reference(*args),
-                   32 * lo.shape[0] + 8 * (rows_n + 1)
-                   + 2 * clipped * search_bytes(width, word))
+        kernel = lambda: kernels.eval_pair_rows(*args)  # noqa: E731
+        want = steps.eval_pair_rows_reference(*args)
+        check.repeat("eval_pair_rows", kernel, want, what)
+        nbytes = (32 * lo.shape[0] + 8 * (rows_n + 1)
+                  + 2 * clipped * search_bytes(width, word))
+        check.time("eval_pair_rows", kernel,
+                   lambda: steps.eval_pair_rows_reference(*args), nbytes)
+        check.device_note("eval_pair_rows", kernel, what)
+        check.searches.append(("eval_pair_rows", what,
+                               nbytes / HBM_BYTES_PER_S * 1e3,
+                               search_rounds(width)))
         check.notes.append(f"eval_pair_rows: {clipped} of "
                            f"{lo.shape[0] * rows_n} (segment, row) clips "
                            f"non-empty, {what}")
@@ -894,7 +1031,9 @@ def shard_edge_cases(check: KernelCheck, dev) -> None:
     """The sharded engine's kernels on every position tier, wrap18 and
     min_dep 2, 1 and 8 rows on the card and 4 + 4 rows in two blocks (the
     second block takes the first's totals): random intervals over every
-    contig with straddling, inner and zero-length segments; then a hot
+    contig with straddling, inner and zero-length segments, and
+    ``synth.rows_edge_segments`` (segments crossing no row, one, two and
+    every row, clips on a range's ends, reversed ones); then a hot
     range (every event in row 0 but one at the axis's end, in the last
     row; the rows between empty) with deltas that carry past int32; and
     the whole
@@ -904,6 +1043,7 @@ def shard_edge_cases(check: KernelCheck, dev) -> None:
 
     from pandepth_tpu_torch.device.layout import GenomeLayout
     from pandepth_tpu_torch.sharding.engine import ShardedCoverageEngine
+    from pandepth_tpu_torch.synth import rows_edge_segments
 
     rng = np.random.RandomState(12)
     other = torch.device(dev.type, 0 if dev.index is None else dev.index)
@@ -943,7 +1083,9 @@ def shard_edge_cases(check: KernelCheck, dev) -> None:
                             f"min_dep={min_dep} wrap18={wrap18} hot={hot}")
                     lo, hi = engs[0].segment_bounds(seg_tid, seg_start,
                                                     seg_end)
-                    shard_case(check, engs[0], lo, hi, what)
+                    elo, ehi = rows_edge_segments(engs[0].bounds, seed=2)
+                    shard_case(check, engs[0], np.concatenate([lo, elo]),
+                               np.concatenate([hi, ehi]), what)
                     got, want = (eng.segment_stats(seg_tid, seg_start,
                                                    seg_end) for eng in engs)
                     check.compare("eval_pair_rows",
@@ -952,6 +1094,44 @@ def shard_edge_cases(check: KernelCheck, dev) -> None:
                                   [torch.from_numpy(want.cover),
                                    torch.from_numpy(want.depth_sum)],
                                   what + ", whole segment_stats")
+
+
+def many_rows_case(check: KernelCheck, dev, rows: int = 5000) -> None:
+    """eval_pair_rows over more range cuts than the kernel stages in
+    shared memory (EP_BOUNDS, 4,096): ``rows`` sorted rows of 6 slots on
+    both position dtypes, slot 0 the range's start, at
+    ``synth.rows_edge_segments``."""
+    import numpy as np
+    import torch
+
+    from pandepth_tpu_torch.device import kernels, sweep
+    from pandepth_tpu_torch.sharding import steps
+    from pandepth_tpu_torch.synth import rows_edge_segments
+
+    rng = np.random.RandomState(14)
+    for dt, total in ((torch.int32, 2_000_000_000),
+                      (torch.int64, 17_000_000_000)):
+        b = np.linspace(0, total, rows + 1).astype(np.int64)
+        p = b[:-1, None] + (rng.rand(rows, 6) * np.diff(b)[:, None]).astype(
+            np.int64)
+        p[:, 0] = b[:-1]
+        pos = torch.from_numpy(np.sort(p, 1)).to(dt)
+        delta = torch.from_numpy(rng.choice([-1, 1, 2], (rows, 6)).astype(
+            np.int32))
+        rows_state = [sweep.sweep_scan_reference(
+            pos[r], delta[r], 1, False, int(torch.iinfo(dt).max))
+            for r in range(rows)]
+        state = [pos] + [torch.stack([x[k] for x in rows_state])
+                         for k in range(3)]
+        lo, hi = (torch.from_numpy(x) for x in rows_edge_segments(b, seed=3))
+        args = (*state, torch.from_numpy(b), 1, lo, hi)
+        # the twin on the host, where its row loop is cheap
+        want = [t.to(dev) for t in steps.eval_pair_rows_reference(*args)]
+        got = kernels.eval_pair_rows(
+            *(a.to(dev) if torch.is_tensor(a) else a for a in args))
+        check.compare("eval_pair_rows", got, want,
+                      f"{rows} rows of 6 slots, {dt}, cuts read from device "
+                      f"memory")
 
 
 def sharded_states(check: KernelCheck, bam: str, bed: str, dev):
@@ -1176,7 +1356,8 @@ def main_path_states(check: KernelCheck, bam: str, bed: str, lst: str,
         if path == "cigar":
             check.state_case(pos, delta, *args)
         elif not eng._has_enc:
-            check.sweep_case(raw_s, raw_e, *args, timed=path == "chr")
+            check.sweep_case(raw_s, raw_e, *args, timed=path == "chr",
+                             pair_note=what if path == "bed" else "")
         else:
             check.decode_cases(groups, eng.pos_sentinel, what, timed=True,
                                note="" if path == "chr_enc" else what)
@@ -1232,13 +1413,14 @@ class FirstBatch:
         self.flags_mask, self.min_mapq = cfg.flags, cfg.min_mapq
 
 
-def load_latency_note(check: KernelCheck, dev) -> None:
+def load_latency_note(check: KernelCheck, dev) -> float:
     """The card's time per dependent load, for the latency-bound kernels'
     (K3, K5, eval_pair_rows) dependent-load bound: eval_boundaries with
     one query on sorted states of 2 and 2^24 int64 events, each query's
     binary search 2 and 25 probes deep, one probe a dependent load; the
     device time's slope per probe (the same query every call, so its
-    probes hit the L2 cache: the least a dependent load takes)."""
+    probes hit the L2 cache: the least a dependent load takes). Returns
+    the nanoseconds a dependent load."""
     import torch
 
     from pandepth_tpu_torch.device import kernels
@@ -1252,11 +1434,12 @@ def load_latency_note(check: KernelCheck, dev) -> None:
         times[n] = (device_ms(lambda: kernels.eval_boundaries(
             pos, depth, zero, zero, 1, x), iters=50)[0], n.bit_length())
     (t_lo, p_lo), (t_hi, p_hi) = times[2], times[1 << 24]
+    ns = (t_hi - t_lo) / (p_hi - p_lo) * 1e6
     check.notes.append(f"dependent-load latency: one eval_boundaries query "
                        f"{t_lo:.4f} ms on 2 events ({p_lo} probes), "
                        f"{t_hi:.4f} ms on 2^24 ({p_hi} probes): "
-                       f"{(t_hi - t_lo) / (p_hi - p_lo) * 1e6:.1f} ns a "
-                       f"dependent load")
+                       f"{ns:.1f} ns a dependent load")
+    return ns
 
 
 def main_path_cigar(check: KernelCheck, fb: FirstBatch, dev) -> None:
@@ -1601,9 +1784,11 @@ def main() -> int:
         # 4. kernels against their twins
         check = KernelCheck()
         sweep_edge_cases(check, dev)
+        search_edge_cases(check, dev)
         extract_edge_cases(check, dev)
         enc_edge_cases(check, dev)
         shard_edge_cases(check, dev)
+        many_rows_case(check, dev)
         bucket_edge_cases(check, dev)
         states, h2d = main_path_states(check, bam, bed, lst, uns, dev)
         states.update(sharded_states(check, bam, bed, dev))
@@ -1616,7 +1801,7 @@ def main() -> int:
                        f"{fb.batch_s[0]:.3f} s, the other "
                        f"{len(fb.batch_s) - 1} {sum(fb.batch_s[1:]):.3f} s")
         main_path_cigar(check, fb, dev)
-        load_latency_note(check, dev)
+        check.round_notes(load_latency_note(check, dev))
         torch.cuda.synchronize()
         shapes = {k: states["chr"]
                   for k in ("pack_events", "sweep_scan", "eval_pair")}
@@ -1758,6 +1943,27 @@ def main() -> int:
                    f"sweep's ({len(bed_tab.splitlines())} lines; host sweep "
                    f"CLI process {host_wall:.3f} s)")
 
+        # -w 1500: 2M windows, more than one chunk of queries, so the
+        # engine finalizes its kept state and evaluates them chunk by chunk
+        _, paths["win"], wall = counted(
+            kernels, "win", lambda: cli("winport", "-w", str(WIN_BP), "-v"))
+        host_wall = host_sweep(["-i", bam, "-w", str(WIN_BP)],
+                               os.path.join(tmp, "winhost"))
+        win_tab = table(os.path.join(tmp, "winport"), "win")
+        n_windows = sum(not ln.startswith(b"#")   # header, summary
+                        for ln in win_tab.splitlines())
+        if n_windows <= QUERY_CHUNK or \
+                paths["win"]["eval_pair"] < 1 + -(-n_windows // QUERY_CHUNK):
+            fail("e2e", f"win: {n_windows} windows in "
+                        f"{paths['win']['eval_pair']} eval_pair launches, "
+                        f"not the chunked path")
+        if win_tab != table(os.path.join(tmp, "winhost"), "win"):
+            fail("e2e", "win: table differs from the host sweep's")
+        say("e2e", f"win (-w {WIN_BP}, {n_windows} windows): {wall:.3f} s "
+                   f"in this process; launches {paths['win']}; table "
+                   f"byte-equal to the host sweep's (host sweep CLI process "
+                   f"{host_wall:.3f} s)")
+
         # the .list: three samples pooled, encoded windows
         n_list = N_READS + 2 * (N_READS // 2)
         _, paths["list"], wall = counted(
@@ -1898,11 +2104,13 @@ def main() -> int:
             prof["bed"] = profiled(lambda: cli("bedprof", "-b", bed))
             prof["chr"] = profiled(lambda: cli("chrprof"))
         prof["chr_enc"] = profiled(lambda: cli("encprof"))
+        prof["win"] = profiled(lambda: cli("winprof", "-w", str(WIN_BP)))
         prof["chr_sharded"] = profiled(lambda: cli("shardprof",
                                                    device=shard_devs))
         if any(table(os.path.join(tmp, f"{p}prof")) != port_tab
                for p in ("cigar", "chr", "enc", "shard")) or \
-                table(os.path.join(tmp, "bedprof"), "bed") != bed_tab:
+                table(os.path.join(tmp, "bedprof"), "bed") != bed_tab or \
+                table(os.path.join(tmp, "winprof"), "win") != win_tab:
             fail("profile", "a profiled run's table differs from phase 6's")
         for path, (pwall, dev_ms, h2d_ms, ops, peak) in prof.items():
             top = "; ".join(f"{name[:60]} {ms:.3f} ms" for name, ms in ops)

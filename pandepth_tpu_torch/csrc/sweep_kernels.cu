@@ -33,7 +33,7 @@ constexpr int THREADS = 256;            // threads per block in the scans
 constexpr int ITEMS = 8;                // consecutive elements per thread
 constexpr int TILE = THREADS * ITEMS;   // elements per scan block
 constexpr int TOTALS_THREADS = 1024;    // shard_carry's one-block carry
-constexpr int POINT_THREADS = 256;      // pack_events / eval_pair
+constexpr int POINT_THREADS = 256;      // pack_events / eval_boundaries
 constexpr int32_t WRAP18_MASK = 0x3FFFF;
 
 typedef unsigned long long u64;
@@ -438,14 +438,13 @@ sweep_scan_kernel(const P* __restrict__ pos,
 }
 
 // ---------------------------------------------------------------------
-// K3 eval_pair — replaces pandepth_tpu/device/sweep.py:eval_pair.
-// Bound on the H100: memory latency, not bandwidth. Each segment does
-// two lower-bound binary searches over pos_s (log2(E) ~ 24 dependent
-// loads each at 16.8M events) and four gathers; with ~300 segments the
-// work is tiny and the launch plus the dependent-load chain set the
-// time. One thread per segment, lo and hi in the same thread, so the
-// whole batch is one launch and the searches of different segments
-// overlap across warps; the upper levels of the search tree stay in L2.
+// Q(x), the integrals of the covered indicator and of covered depth over
+// [0, x), from r = the first index with pos[r] >= x (lower bound) and the
+// piece before it: c_cov/c_sum up to piece r - 2 and the part of piece
+// r - 1 below x. q_eval searches with one thread (K5); K3 and
+// eval_pair_rows search with a group of lanes (group_lower_bound) and
+// gather the four words in one round (group_q), or K3 searches events
+// staged in shared memory (window_q).
 
 template <typename P>
 __device__ __forceinline__ void q_eval(const P* __restrict__ pos,
@@ -474,23 +473,307 @@ __device__ __forceinline__ void q_eval(const P* __restrict__ pos,
     *q_sum = sum;
 }
 
+// The lower bound of x in pos[lo, hi) (hi if every word is below x),
+// searched by a group of g lanes (g a power of two up to 32; the group is
+// lanes [first, first + g) of the warp, gl the lane's place in it). Each
+// round lane j loads the splitter s_j = lo + len * (j + 1) / (g + 1); the
+// splitters are non-decreasing in j and pos is sorted, so the c splitters
+// below x are the first c, and the answer lies in (s_{c-1}, s_c] (lo when
+// c = 0, hi when c = g): a (g + 1)-way cut, ceil(log_{g+1}(len)) rounds
+// of g independent loads (g = 1 is the binary search). Runs of equal
+// words need nothing: a splitter on one is below x or not. Every lane of
+// the warp calls it, each group with its own interval (an empty one for
+// a group with no query), and the warp runs until its last group is done,
+// so every ballot is the full warp's.
 template <typename P>
-__global__ void eval_pair_kernel(const P* __restrict__ pos,
-                                 const int32_t* __restrict__ depth,
-                                 const int64_t* __restrict__ c_cov,
-                                 const int64_t* __restrict__ c_sum,
-                                 int64_t e, int32_t min_dep,
-                                 const P* __restrict__ lo,
-                                 const P* __restrict__ hi, int64_t b,
-                                 int64_t* __restrict__ cover,
-                                 int64_t* __restrict__ dsum) {
-    const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-    if (i >= b) return;
-    u64 cov_lo, sum_lo, cov_hi, sum_hi;
-    q_eval<P>(pos, depth, c_cov, c_sum, e, min_dep, lo[i], &cov_lo, &sum_lo);
-    q_eval<P>(pos, depth, c_cov, c_sum, e, min_dep, hi[i], &cov_hi, &sum_hi);
-    cover[i] = (int64_t)(cov_hi - cov_lo);
-    dsum[i] = (int64_t)(sum_hi - sum_lo);
+__device__ __forceinline__ int64_t group_lower_bound(const P* __restrict__ pos,
+                                                     int64_t lo, int64_t hi,
+                                                     P x, int g, int gl,
+                                                     int first) {
+    const unsigned own = (g == 32 ? 0xffffffffu : (1u << g) - 1u) << first;
+    while (__any_sync(0xffffffffu, lo < hi)) {
+        const int64_t len = hi - lo;
+        const bool live = lo < hi;
+        const bool below = live && pos[lo + len * (gl + 1) / (g + 1)] < x;
+        const int c = __popc(__ballot_sync(0xffffffffu, below) & own);
+        if (live) {
+            const int64_t base = lo;
+            if (c > 0) lo = base + len * c / (g + 1) + 1;
+            if (c < g) hi = base + len * (c + 1) / (g + 1);
+        }
+    }
+    return lo;
+}
+
+// Q(x) from a group's lower bound r: the four words (pos[r-1],
+// depth[r-1], c_cov[r-2], c_sum[r-2]) loaded in one round, word i by the
+// group's lane i mod g, then shared through the group. Every lane of the
+// warp calls it and every lane of a group gets its Q. u64 arithmetic as
+// q_eval's, wraps included.
+template <typename P>
+__device__ __forceinline__ void group_q(const P* __restrict__ pos,
+                                        const int32_t* __restrict__ depth,
+                                        const int64_t* __restrict__ c_cov,
+                                        const int64_t* __restrict__ c_sum,
+                                        int32_t min_dep, int64_t r, P x,
+                                        int g, int gl, int first, u64* q_cov,
+                                        u64* q_sum) {
+    u64 v[4] = {0, 0, 0, 0};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+        if ((i & (g - 1)) != gl) continue;
+        if (i == 0 && r >= 1) v[0] = (u64)(int64_t)pos[r - 1];
+        if (i == 1 && r >= 1) v[1] = (u64)(int64_t)depth[r - 1];
+        if (i == 2 && r >= 2) v[2] = (u64)c_cov[r - 2];
+        if (i == 3 && r >= 2) v[3] = (u64)c_sum[r - 2];
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+        v[i] = __shfl_sync(0xffffffffu, v[i], first + (i & (g - 1)));
+    u64 cov = v[2], sum = v[3];
+    if (r >= 1) {
+        const int32_t dep = (int32_t)v[1];
+        const u64 part = dep >= min_dep
+                             ? (u64)((int64_t)x - (int64_t)v[0]) : 0;
+        cov += part;
+        sum += part * (u64)(int64_t)dep;
+    }
+    *q_cov = cov;
+    *q_sum = sum;
+}
+
+// The group size for n queries over `lanes` lanes: the largest power of
+// two up to 16 that gives every query its own group.
+__device__ __forceinline__ int group_size(int64_t n, int lanes) {
+    int g = 16;
+    while (g > 1 && (int64_t)g * n > lanes) g >>= 1;
+    return g;
+}
+
+// ---------------------------------------------------------------------
+// K3 eval_pair — replaces pandepth_tpu/device/sweep.py:eval_pair.
+// Bound on the H100: the dependent loads of the search where the queries
+// are few (the chr path's 300 segments over 15.2M events), the bytes
+// where they are many (a -w 150 grid's 1M-window chunks; the exome's
+// 200,000 regions). A thread a segment running its lo and then its hi
+// binary search would chain 2 x (log2 E + 1) loads. Instead a block
+// takes a tile of EP_TILE_MIN or more consecutive segments (the wrapper
+// sizes the grid to one resident wave, or to EP_TILE_MIN segments a
+// block where that is fewer blocks), and decides per tile at run time:
+//   dense  (more than EP_TILE_MIN segments): find the lower bounds rmin
+//          and rmax of the tile's least and greatest boundary; every
+//          boundary of the tile has its r in [rmin, rmax]. If rmax - rmin
+//          <= EP_WIN, stage pos[rmin, rmax) in shared memory and finish
+//          each search there (staged_eval). If not, do the same for each
+//          sub-tile of EP_THREADS segments, inside [rmin, rmax].
+//   sparse (a small tile, or a sub-tile whose span does not fit): lane
+//          groups, g lanes a boundary (16 for up to EP_TILE_MIN segments,
+//          fewer for more), inside the span when it is known
+//          (sparse_eval).
+// At 15.2M events a 16-lane search takes ceil(log17 E) = 6 rounds, plus
+// the gather: 7 dependent loads for a segment, against 50. Registers are
+// capped for EP_MIN_BLOCKS blocks an SM: a larger wave of smaller dense
+// tiles was faster on a 1M-window chunk of a -w 150 grid (0.0318 against
+// 0.0353 ms, H100 80GB HBM3 at 700 W, tools/kernel_ab.py); four segments
+// a thread in flight was 7x slower there. Fixed tiles of EP_THREADS
+// segments, one block each, took 6x the wave's time on the chr path's
+// 300 segments and 1.28x on the -w 150 chunk; tiles of b / 1024
+// segments, 8 to 256, 1.28x on the chunk (same card, tools/kernel_ab.py).
+constexpr int EP_THREADS = 256;        // threads per block, K3 and rows
+constexpr int EP_WARPS = EP_THREADS / 32;
+constexpr int EP_TILE_MIN = 8;         // segments: 16 lanes a boundary
+constexpr int EP_WIN = 3072;           // event words a dense tile stages
+constexpr int EP_MIN_BLOCKS = 8;       // blocks an SM (registers capped)
+
+// The lower bounds, in pos[a, z), of the least (mn) and greatest (mx)
+// of the block's boundaries, into *r0 and *r1 of every thread: a block
+// reduction, then two 16-lane groups of warp 0. Every thread calls it.
+template <typename P>
+__device__ __forceinline__ void block_span(const P* __restrict__ pos,
+                                           int64_t a, int64_t z, P mn, P mx,
+                                           P (*red)[EP_WARPS],
+                                           int64_t* span, int64_t* r0,
+                                           int64_t* r1) {
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+        const P u = __shfl_xor_sync(0xffffffffu, mn, o);
+        const P v = __shfl_xor_sync(0xffffffffu, mx, o);
+        mn = u < mn ? u : mn;
+        mx = v > mx ? v : mx;
+    }
+    if (lane == 0) {
+        red[0][warp] = mn;
+        red[1][warp] = mx;
+    }
+    __syncthreads();
+    if (warp == 0) {
+        mn = red[0][0];
+        mx = red[1][0];
+        for (int w = 1; w < EP_WARPS; ++w) {
+            mn = red[0][w] < mn ? red[0][w] : mn;
+            mx = red[1][w] > mx ? red[1][w] : mx;
+        }
+        const int64_t r = group_lower_bound<P>(pos, a, z, lane < 16 ? mn : mx,
+                                               16, lane & 15, lane & 16);
+        if ((lane & 15) == 0) span[lane >> 4] = r;
+    }
+    __syncthreads();
+    *r0 = span[0];
+    *r1 = span[1];
+}
+
+// Q(x) of a boundary whose lower bound lies in [a, a + cnt], with
+// pos[a, a + cnt) staged in win: a binary search in shared memory, then
+// the gathers.
+template <typename P>
+__device__ __forceinline__ void window_q(const P* win, int cnt, int64_t a,
+                                         const P* __restrict__ pos,
+                                         const int32_t* __restrict__ depth,
+                                         const int64_t* __restrict__ c_cov,
+                                         const int64_t* __restrict__ c_sum,
+                                         int32_t min_dep, P x, u64* q_cov,
+                                         u64* q_sum) {
+    int i = 0, j = cnt;
+    while (i < j) {
+        const int m = (i + j) >> 1;
+        if (win[m] < x) i = m + 1;
+        else j = m;
+    }
+    const int64_t r = a + i;
+    u64 cov = r >= 2 ? (u64)c_cov[r - 2] : 0;
+    u64 sum = r >= 2 ? (u64)c_sum[r - 2] : 0;
+    if (r >= 1) {
+        const P p = i >= 1 ? win[i - 1] : pos[r - 1];
+        const int32_t dep = depth[r - 1];
+        const u64 part = dep >= min_dep ? (u64)((int64_t)x - (int64_t)p) : 0;
+        cov += part;
+        sum += part * (u64)(int64_t)dep;
+    }
+    *q_cov = cov;
+    *q_sum = sum;
+}
+
+// The segments [s0, s1) of a block in shared memory, if the lower bounds
+// of their boundaries, searched in pos[*a, *z), span at most EP_WIN
+// events: the least and greatest boundary by a block reduction (min and
+// max, so any query order is right), their lower bounds (block_span,
+// into *a and *z whether they fit or not), pos[*a, *z) staged with
+// coalesced loads, then each boundary's window_q; the gathers of sorted
+// queries fall on neighbouring rows. Returns whether they fitted. Every
+// thread calls it.
+template <typename P>
+__device__ __forceinline__ bool staged_eval(const P* __restrict__ pos,
+                                            const int32_t* __restrict__ depth,
+                                            const int64_t* __restrict__ c_cov,
+                                            const int64_t* __restrict__ c_sum,
+                                            int32_t min_dep,
+                                            const P* __restrict__ lo,
+                                            const P* __restrict__ hi,
+                                            int64_t s0, int64_t s1, P* win,
+                                            P (*red)[EP_WARPS],
+                                            int64_t* span, int64_t* a,
+                                            int64_t* z,
+                                            int64_t* __restrict__ cover,
+                                            int64_t* __restrict__ dsum) {
+    const int tid = threadIdx.x;
+    P mn = hi[s0], mx = mn;
+#pragma unroll 4
+    for (int64_t s = s0 + tid; s < s1; s += EP_THREADS) {
+        const P x0 = lo[s], x1 = hi[s];
+        mn = x0 < mn ? x0 : mn;
+        mn = x1 < mn ? x1 : mn;
+        mx = x0 > mx ? x0 : mx;
+        mx = x1 > mx ? x1 : mx;
+    }
+    block_span<P>(pos, *a, *z, mn, mx, red, span, a, z);
+    if (*z - *a > EP_WIN) return false;
+    const int cnt = (int)(*z - *a);
+#pragma unroll 4
+    for (int j = tid; j < cnt; j += EP_THREADS) win[j] = pos[*a + j];
+    __syncthreads();
+    for (int64_t s = s0 + tid; s < s1; s += EP_THREADS) {
+        u64 cl, sl, ch, sh;
+        window_q<P>(win, cnt, *a, pos, depth, c_cov, c_sum, min_dep, lo[s],
+                    &cl, &sl);
+        window_q<P>(win, cnt, *a, pos, depth, c_cov, c_sum, min_dep, hi[s],
+                    &ch, &sh);
+        cover[s] = (int64_t)(ch - cl);
+        dsum[s] = (int64_t)(sh - sl);
+    }
+    return true;
+}
+
+// The m <= EP_THREADS segments from s0 with lane groups, their lower
+// bounds searched in pos[a, z): a pair of g-lane groups a segment, one
+// on lo and one on hi, block-uniform rounds; then the gather round, and
+// the hi group's Q goes to the lo group's first lane by one shuffle.
+template <typename P>
+__device__ __forceinline__ void sparse_eval(const P* __restrict__ pos,
+                                            const int32_t* __restrict__ depth,
+                                            const int64_t* __restrict__ c_cov,
+                                            const int64_t* __restrict__ c_sum,
+                                            int32_t min_dep,
+                                            const P* __restrict__ lo,
+                                            const P* __restrict__ hi,
+                                            int64_t s0, int m, int64_t a,
+                                            int64_t z,
+                                            int64_t* __restrict__ cover,
+                                            int64_t* __restrict__ dsum) {
+    const int tid = threadIdx.x, lane = tid & 31;
+    const int g = group_size(2 * m, EP_THREADS);
+    const int pairs = EP_THREADS / (2 * g);
+    const int pair = tid / (2 * g), side = (tid / g) & 1;
+    const int gl = tid & (g - 1), first = lane & ~(g - 1);
+    for (int j0 = 0; j0 < m; j0 += pairs) {
+        const int64_t s = s0 + j0 + pair;
+        const bool has = j0 + pair < m;
+        const P x = has ? (side ? hi[s] : lo[s]) : P(0);
+        const int64_t r = group_lower_bound<P>(pos, has ? a : 0, has ? z : 0,
+                                               x, g, gl, first);
+        u64 cov, sum;
+        group_q<P>(pos, depth, c_cov, c_sum, min_dep, r, x, g, gl, first,
+                   &cov, &sum);
+        const u64 cov_hi = __shfl_down_sync(0xffffffffu, cov, g);
+        const u64 sum_hi = __shfl_down_sync(0xffffffffu, sum, g);
+        if (has && side == 0 && gl == 0) {
+            cover[s] = (int64_t)(cov_hi - cov);
+            dsum[s] = (int64_t)(sum_hi - sum);
+        }
+    }
+}
+
+template <typename P>
+__global__ void __launch_bounds__(EP_THREADS, EP_MIN_BLOCKS)
+eval_pair_kernel(const P* __restrict__ pos, const int32_t* __restrict__ depth,
+                 const int64_t* __restrict__ c_cov,
+                 const int64_t* __restrict__ c_sum, int64_t e,
+                 int32_t min_dep, const P* __restrict__ lo,
+                 const P* __restrict__ hi, int64_t b, int64_t tile,
+                 int64_t* __restrict__ cover, int64_t* __restrict__ dsum) {
+    __shared__ int64_t win_words[EP_WIN];
+    __shared__ P red[2][EP_WARPS];
+    __shared__ int64_t span[2];
+    P* win = reinterpret_cast<P*>(win_words);
+    const int64_t s0 = (int64_t)blockIdx.x * tile;
+    const int64_t s1 = s0 + tile < b ? s0 + tile : b;
+    int64_t a = 0, z = e;   // where the tile's lower bounds lie
+    if (s1 - s0 > EP_TILE_MIN
+        && staged_eval<P>(pos, depth, c_cov, c_sum, min_dep, lo, hi, s0, s1,
+                          win, red, span, &a, &z, cover, dsum))
+        return;
+    // by sub-tiles of EP_THREADS segments inside the tile's span
+    for (int64_t base = s0; base < s1; base += EP_THREADS) {
+        const int m = (int)(s1 - base < EP_THREADS ? s1 - base : EP_THREADS);
+        int64_t sa = a, sz = z;
+        if (s1 - s0 > EP_THREADS && m > EP_TILE_MIN
+            && staged_eval<P>(pos, depth, c_cov, c_sum, min_dep, lo, hi,
+                              base, base + m, win, red, span, &sa, &sz,
+                              cover, dsum))
+            continue;
+        sparse_eval<P>(pos, depth, c_cov, c_sum, min_dep, lo, hi, base, m, sa,
+                       sz, cover, dsum);
+    }
 }
 
 // ---------------------------------------------------------------------
@@ -1053,43 +1336,97 @@ __global__ void row_carry_kernel(const u64* __restrict__ part,
 // eval_pair_rows: K3 over a stack of rows, each segment clipped to each
 // row's range [bounds[r], bounds[r+1]] (JAX's jnp.clip in local_eval)
 // and Q(hi) - Q(lo) summed over the rows in int64 (JAX's psum over the
-// devices, here over the rows of one device). Bound on the H100: memory
-// latency, as K3: two dependent binary searches per segment and row. A
-// segment's clip is empty (Q(x) - Q(x) = 0 exactly) in every row but
-// those its span crosses, so one thread per segment walks the rows and
-// searches only those; segments inside one range do one row's work.
+// devices, here over the rows of one device). Bound on the H100: the
+// dependent loads of the searches. A segment's clip is empty (l == h,
+// Q(l) - Q(h) = 0 exactly) in every row but those its span crosses, and
+// with the cuts non-decreasing (the engine's range cuts) those are the
+// rows [R0, R1) with bounds[r] < max(lo, hi) and bounds[r + 1] >
+// min(lo, hi): a warp takes a segment, finds R0 and R1 by binary
+// searches of the cuts (staged in shared memory when there are at most
+// EP_BOUNDS of them, else read where they are), and runs the 2 (R1 - R0)
+// searches of its (row, lo) and (row, hi) clips at once, in groups of
+// as many lanes as go round (16 for a segment inside one range), each
+// group_lower_bound's (g + 1)-way search of its row; then the warp sums
+// the signed Q in u64, which wraps as JAX's int64 sum does and does not
+// depend on the order, and lane 0 writes it.
+constexpr int EP_BOUNDS = 4096;   // range cuts staged in shared memory
+
+// the first i in [0, n) with a[i] >= x (strict: a[i] > x), n if none
+template <bool STRICT>
+__device__ __forceinline__ int64_t first_at(const int64_t* a, int64_t n,
+                                            int64_t x) {
+    int64_t lo = 0, hi = n;
+    while (lo < hi) {
+        const int64_t m = (lo + hi) >> 1;
+        if (STRICT ? a[m] <= x : a[m] < x) lo = m + 1;
+        else hi = m;
+    }
+    return lo;
+}
 
 template <typename P>
-__global__ void eval_pair_rows_kernel(const P* __restrict__ pos,
-                                      const int32_t* __restrict__ depth,
-                                      const int64_t* __restrict__ c_cov,
-                                      const int64_t* __restrict__ c_sum,
-                                      int64_t rows, int64_t width,
-                                      const int64_t* __restrict__ bounds,
-                                      int32_t min_dep,
-                                      const int64_t* __restrict__ lo,
-                                      const int64_t* __restrict__ hi,
-                                      int64_t b, int64_t* __restrict__ cover,
-                                      int64_t* __restrict__ dsum) {
-    const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-    if (i >= b) return;
-    const int64_t x0 = lo[i], x1 = hi[i];
-    u64 cov = 0, sum = 0;
-    for (int64_t r = 0; r < rows; ++r) {
-        const int64_t a = bounds[r], z = bounds[r + 1];
-        const int64_t l = clip64(x0, a, z), h = clip64(x1, a, z);
-        if (l == h) continue;
-        const int64_t off = r * width;
-        u64 cov_lo, sum_lo, cov_hi, sum_hi;
-        q_eval<P>(pos + off, depth + off, c_cov + off, c_sum + off, width,
-                  min_dep, (P)l, &cov_lo, &sum_lo);
-        q_eval<P>(pos + off, depth + off, c_cov + off, c_sum + off, width,
-                  min_dep, (P)h, &cov_hi, &sum_hi);
-        cov += cov_hi - cov_lo;
-        sum += sum_hi - sum_lo;
+__global__ void __launch_bounds__(EP_THREADS)
+eval_pair_rows_kernel(const P* __restrict__ pos,
+                      const int32_t* __restrict__ depth,
+                      const int64_t* __restrict__ c_cov,
+                      const int64_t* __restrict__ c_sum, int64_t rows,
+                      int64_t width, const int64_t* __restrict__ bounds,
+                      int32_t min_dep, const int64_t* __restrict__ lo,
+                      const int64_t* __restrict__ hi, int64_t b,
+                      int64_t* __restrict__ cover,
+                      int64_t* __restrict__ dsum) {
+    __shared__ int64_t staged[EP_BOUNDS];
+    const int lane = threadIdx.x & 31;
+    const int64_t* bd = bounds;
+    if (rows + 1 <= EP_BOUNDS) {
+        for (int j = threadIdx.x; j <= rows; j += EP_THREADS)
+            staged[j] = bounds[j];
+        __syncthreads();
+        bd = staged;
     }
-    cover[i] = (int64_t)cov;
-    dsum[i] = (int64_t)sum;
+    const int64_t s = (int64_t)blockIdx.x * EP_WARPS + (threadIdx.x >> 5);
+    if (s >= b) return;   // a whole warp
+    const int64_t x0 = lo[s], x1 = hi[s];
+    const int64_t u = x0 < x1 ? x0 : x1, v = x0 < x1 ? x1 : x0;
+    // the first row with bounds[r] >= v, and the first with bounds[r+1] > u
+    const int64_t r1 = first_at<false>(bd, rows, v);
+    const int64_t r0 = first_at<true>(bd + 1, rows, u);
+    const int64_t items = r1 > r0 ? 2 * (r1 - r0) : 0;
+    const int g = group_size(items, 32);
+    const int gl = lane & (g - 1), first = lane & ~(g - 1);
+    u64 cov = 0, sum = 0;
+    for (int64_t base = 0; base < items; base += 32 / g) {
+        const int64_t item = base + lane / g;
+        const bool has = item < items;
+        const int64_t r = r0 + (has ? item >> 1 : 0);
+        const int64_t a = has ? bd[r] : 0, z = has ? bd[r + 1] : 0;
+        const P x = (P)clip64(item & 1 ? x1 : x0, a, z);
+        const int64_t off = r * width;
+        const int64_t idx = group_lower_bound<P>(pos + off, 0,
+                                                 has ? width : 0, x, g, gl,
+                                                 first);
+        u64 qc, qs;
+        group_q<P>(pos + off, depth + off, c_cov + off, c_sum + off,
+                   min_dep, idx, x, g, gl, first, &qc, &qs);
+        if (has && gl == 0) {
+            if (item & 1) {
+                cov += qc;
+                sum += qs;
+            } else {
+                cov -= qc;
+                sum -= qs;
+            }
+        }
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+        cov += __shfl_xor_sync(0xffffffffu, cov, o);
+        sum += __shfl_xor_sync(0xffffffffu, sum, o);
+    }
+    if (lane == 0) {
+        cover[s] = (int64_t)cov;
+        dsum[s] = (int64_t)sum;
+    }
 }
 
 // ---------------------------------------------------------------------
@@ -1618,6 +1955,9 @@ int64_t pdt_sweep_scan_tile(void) { return SWEEP_TILE; }
 int64_t pdt_decode_enc_tile(void) { return DEC_TILE; }
 int64_t pdt_extract_events_tile(void) { return EXT_TILE; }
 
+// Event words a dense tile of eval_pair stages in shared memory.
+int64_t pdt_eval_pair_win(void) { return EP_WIN; }
+
 // The int64 words of scratch that sweep_scan takes for n events,
 // decode_enc for a block of rows x cap slots and extract_events for m
 // ops: tile counter, status words and look-back slots.
@@ -1682,6 +2022,11 @@ int pdt_sweep_scan(int device, int pos64, const void* pos,
                                      c_sum, scratch, st);
 }
 
+// K3 on b segments: pos/lo/hi int64 when pos64 is set, else int32.
+// The grid is one resident wave (SMs x EP_MIN_BLOCKS: the block's 256
+// threads, its registers and its 24 KB of shared memory let 8 share an
+// SM), or fewer where a block would get fewer than EP_TILE_MIN segments;
+// each block takes `tile` consecutive segments and chooses its own path.
 int pdt_eval_pair(int device, int pos64, const void* pos,
                   const int32_t* depth, const int64_t* c_cov,
                   const int64_t* c_sum, int64_t e, int32_t min_dep,
@@ -1691,17 +2036,22 @@ int pdt_eval_pair(int device, int pos64, const void* pos,
     if (err != cudaSuccess) return (int)err;
     if (b <= 0 || e <= 0) return (int)cudaGetLastError();
     cudaStream_t st = (cudaStream_t)stream;
-    const unsigned int blocks =
-        (unsigned int)((b + POINT_THREADS - 1) / POINT_THREADS);
-    if (pos64) {
-        eval_pair_kernel<int64_t><<<blocks, POINT_THREADS, 0, st>>>(
+    int sms;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+    if (err != cudaSuccess) return (int)err;
+    int64_t blocks = (b + EP_TILE_MIN - 1) / EP_TILE_MIN;
+    if (blocks > (int64_t)sms * EP_MIN_BLOCKS)
+        blocks = (int64_t)sms * EP_MIN_BLOCKS;   // one resident wave
+    const int64_t tile = (b + blocks - 1) / blocks;
+    blocks = (b + tile - 1) / tile;
+    if (pos64)
+        eval_pair_kernel<int64_t><<<(unsigned int)blocks, EP_THREADS, 0, st>>>(
             (const int64_t*)pos, depth, c_cov, c_sum, e, min_dep,
-            (const int64_t*)lo, (const int64_t*)hi, b, cover, dsum);
-    } else {
-        eval_pair_kernel<int32_t><<<blocks, POINT_THREADS, 0, st>>>(
+            (const int64_t*)lo, (const int64_t*)hi, b, tile, cover, dsum);
+    else
+        eval_pair_kernel<int32_t><<<(unsigned int)blocks, EP_THREADS, 0, st>>>(
             (const int32_t*)pos, depth, c_cov, c_sum, e, min_dep,
-            (const int32_t*)lo, (const int32_t*)hi, b, cover, dsum);
-    }
+            (const int32_t*)lo, (const int32_t*)hi, b, tile, cover, dsum);
     return (int)cudaGetLastError();
 }
 
@@ -1838,8 +2188,9 @@ int pdt_shard_carry(int device, int pos64, void* pos, int32_t* delta,
 }
 
 // K9's clipped eval over `rows` sorted rows of `width` (the sweep state
-// of each, row-major): bounds[rows + 1] int64, lo/hi (b,) int64 global
-// segment bounds; (cover, dsum) summed over the rows.
+// of each, row-major): bounds[rows + 1] int64, non-decreasing; lo/hi
+// (b,) int64 global segment bounds; (cover, dsum) summed over the rows.
+// A warp a segment.
 int pdt_eval_pair_rows(int device, int pos64, const void* pos,
                        const int32_t* depth, const int64_t* c_cov,
                        const int64_t* c_sum, int64_t rows, int64_t width,
@@ -1852,13 +2203,13 @@ int pdt_eval_pair_rows(int device, int pos64, const void* pos,
     if (rows <= 0 || width <= 0) return (int)cudaErrorInvalidValue;
     cudaStream_t st = (cudaStream_t)stream;
     const unsigned int blocks =
-        (unsigned int)((b + POINT_THREADS - 1) / POINT_THREADS);
+        (unsigned int)((b + EP_WARPS - 1) / EP_WARPS);
     if (pos64)
-        eval_pair_rows_kernel<int64_t><<<blocks, POINT_THREADS, 0, st>>>(
+        eval_pair_rows_kernel<int64_t><<<blocks, EP_THREADS, 0, st>>>(
             (const int64_t*)pos, depth, c_cov, c_sum, rows, width, bounds,
             min_dep, lo, hi, b, cover, dsum);
     else
-        eval_pair_rows_kernel<int32_t><<<blocks, POINT_THREADS, 0, st>>>(
+        eval_pair_rows_kernel<int32_t><<<blocks, EP_THREADS, 0, st>>>(
             (const int32_t*)pos, depth, c_cov, c_sum, rows, width, bounds,
             min_dep, lo, hi, b, cover, dsum);
     return (int)cudaGetLastError();

@@ -392,8 +392,10 @@ class CoverageEngine:
         return q[0], q[1]
 
     @staticmethod
-    def _fetch(cover: torch.Tensor, dsum: torch.Tensor) -> SegmentStats:
-        both = torch.stack([cover, dsum]).cpu().numpy()
+    def _fetch(both: torch.Tensor) -> SegmentStats:
+        """The (2, B) (cover, dsum) buffer, brought to the host in one
+        copy."""
+        both = both.cpu().numpy()
         return SegmentStats(cover=both[0], depth_sum=both[1])
 
     def segment_stats(self, seg_tid: np.ndarray, seg_start: np.ndarray,
@@ -414,8 +416,9 @@ class CoverageEngine:
         if self._state is None and b <= chunk:
             cp, cd = self._event_chunks()
             q_lo, q_hi = self.queries(lo, hi)
+            both = torch.empty((2, b), dtype=torch.int64, device=self.device)
             kw = dict(min_dep=self.min_dep, wrap18=self.wrap18,
-                      want_state=keep, pos_max=self.pos_sentinel)
+                      want_state=keep, pos_max=self.pos_sentinel, out=both)
             if self._has_enc:
                 out = sweep.finalize_encoded(*self._enc_args(), cp, cd, q_lo,
                                              q_hi, **kw)
@@ -426,7 +429,7 @@ class CoverageEngine:
             if keep:
                 self._state = out[2:6]
                 self._chunks = [(out[2], out[6])]
-            return self._fetch(out[0], out[1])
+            return self._fetch(both)
 
         pos_s, depth, c_cov, c_sum = self.sweep_state()
         cover = np.empty(b, np.int64)
@@ -434,8 +437,8 @@ class CoverageEngine:
         for i in range(0, b, chunk):
             j = min(i + chunk, b)
             q_lo, q_hi = self.queries(lo[i:j], hi[i:j])
-            st = self._fetch(*sweep.eval_pair(pos_s, depth, c_cov, c_sum,
-                                              self.min_dep, q_lo, q_hi))
+            st = self._fetch(sweep.eval_pair(pos_s, depth, c_cov, c_sum,
+                                             self.min_dep, q_lo, q_hi))
             cover[i:j] = st.cover
             dsum[i:j] = st.depth_sum
         return SegmentStats(cover=cover, depth_sum=dsum)

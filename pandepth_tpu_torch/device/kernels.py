@@ -139,7 +139,7 @@ def library() -> ctypes.CDLL:
                                            vp, vp, i64, vp, vp, vp]
         for name in ("pdt_bucket_tile", "pdt_bucket_max_world",
                      "pdt_sweep_scan_tile", "pdt_decode_enc_tile",
-                     "pdt_extract_events_tile",
+                     "pdt_extract_events_tile", "pdt_eval_pair_win",
                      "pdt_decode_enc_max_blocks"):
             getattr(lib, name).restype = i64
             getattr(lib, name).argtypes = []
@@ -251,31 +251,37 @@ def sweep_scan(pos_s: torch.Tensor, delta_s: torch.Tensor, min_dep: int,
 
 def eval_pair(pos_s: torch.Tensor, depth: torch.Tensor, c_cov: torch.Tensor,
               c_sum: torch.Tensor, min_dep: int, lo: torch.Tensor,
-              hi: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """K3: (cover, dsum) int64 = Q(hi) - Q(lo) per segment; ``lo`` and
-    ``hi`` in the dtype of ``pos_s``."""
+              hi: torch.Tensor, out=None) -> torch.Tensor:
+    """K3: (2, B) int64, the rows (cover, dsum) = Q(hi) - Q(lo) per
+    segment, one buffer that one copy brings to the host (written into
+    ``out`` when it is given); ``lo`` and ``hi`` in the dtype of
+    ``pos_s``."""
     pos64 = _pos64("eval_pair", pos_s)
     for t in (pos_s, lo, hi):
         _require("eval_pair", t, pos_s.dtype)
     _require("eval_pair", depth, torch.int32)
     _require("eval_pair", c_cov, torch.int64)
     _require("eval_pair", c_sum, torch.int64)
+    _one_device("eval_pair", pos_s, depth, c_cov, c_sum, lo, hi)
     e = pos_s.shape[0]
     if not (depth.shape[0] == c_cov.shape[0] == c_sum.shape[0] == e) \
             or lo.shape != hi.shape or e == 0:
         raise ValueError("eval_pair: inconsistent sweep state or query "
                          "shapes")
     b = lo.shape[0]
-    cover = torch.empty(b, dtype=torch.int64, device=lo.device)
-    dsum = torch.empty(b, dtype=torch.int64, device=lo.device)
+    if out is None:
+        out = torch.empty((2, b), dtype=torch.int64, device=lo.device)
+    if out.dtype != torch.int64 or tuple(out.shape) != (2, b) \
+            or not out.is_contiguous() or out.device != lo.device:
+        raise ValueError(f"eval_pair: out must be a contiguous (2, {b}) "
+                         f"int64 tensor on {lo.device}")
     if b:
-        lib = _loaded()
-        _check("eval_pair", lib.pdt_eval_pair(
+        _check("eval_pair", _loaded().pdt_eval_pair(
             pos_s.get_device(), pos64, _p(pos_s), _p(depth), _p(c_cov),
-            _p(c_sum), e, int(min_dep), _p(lo), _p(hi), b, _p(cover),
-            _p(dsum), _stream(pos_s)))
+            _p(c_sum), e, int(min_dep), _p(lo), _p(hi), b, _p(out[0]),
+            _p(out[1]), _stream(pos_s)))
         launches["eval_pair"] += 1
-    return cover, dsum
+    return out
 
 
 def eval_boundaries(pos_s: torch.Tensor, depth: torch.Tensor,
@@ -510,11 +516,12 @@ def shard_carry(pos2d: torch.Tensor, delta2d: torch.Tensor,
 def eval_pair_rows(pos_s2: torch.Tensor, depth2: torch.Tensor,
                    c_cov2: torch.Tensor, c_sum2: torch.Tensor,
                    bounds: torch.Tensor, min_dep: int, lo: torch.Tensor,
-                   hi: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+                   hi: torch.Tensor) -> torch.Tensor:
     """K9's clipped eval: (cover, dsum) int64 per segment, the sum over
     the rows of Q(hi_r) - Q(lo_r) on row r's sweep state, where lo_r and
     hi_r are ``lo``/``hi`` (int64 global bounds) clipped to
-    [bounds[r], bounds[r + 1]]."""
+    [bounds[r], bounds[r + 1]]; ``bounds`` non-decreasing (the engine's
+    range cuts). (2, B), the rows (cover, dsum) of one buffer."""
     pos64 = _pos64("eval_pair_rows", pos_s2)
     if pos_s2.dim() != 2:
         raise ValueError(f"eval_pair_rows: needs (rows, width) rows, got "
@@ -533,16 +540,14 @@ def eval_pair_rows(pos_s2: torch.Tensor, depth2: torch.Tensor,
         raise ValueError("eval_pair_rows: inconsistent rows, bounds or "
                          "query shapes")
     b = lo.shape[0]
-    cover = torch.empty(b, dtype=torch.int64, device=lo.device)
-    dsum = torch.empty(b, dtype=torch.int64, device=lo.device)
+    out = torch.empty((2, b), dtype=torch.int64, device=lo.device)
     if b:
-        lib = _loaded()
-        _check("eval_pair_rows", lib.pdt_eval_pair_rows(
+        _check("eval_pair_rows", _loaded().pdt_eval_pair_rows(
             pos_s2.get_device(), pos64, _p(pos_s2), _p(depth2), _p(c_cov2),
             _p(c_sum2), rows, width, _p(bounds), int(min_dep), _p(lo),
-            _p(hi), b, _p(cover), _p(dsum), _stream(pos_s2)))
+            _p(hi), b, _p(out[0]), _p(out[1]), _stream(pos_s2)))
         launches["eval_pair_rows"] += 1
-    return cover, dsum
+    return out
 
 
 def bucket_events(pos: torch.Tensor, delta: torch.Tensor,

@@ -162,13 +162,15 @@ def eval_pair_reference(pos_s: torch.Tensor, depth: torch.Tensor,
 
 def eval_pair(pos_s: torch.Tensor, depth: torch.Tensor, c_cov: torch.Tensor,
               c_sum: torch.Tensor, min_dep: int, lo: torch.Tensor,
-              hi: torch.Tensor, method: Optional[str] = None):
-    """Per-segment (cover, dsum) int64 = Q(hi) - Q(lo).
-    ``lo``/``hi`` are in the position dtype."""
+              hi: torch.Tensor, method: Optional[str] = None, *, out=None):
+    """Per-segment (cover, dsum) int64 = Q(hi) - Q(lo), the rows of one
+    (2, B) buffer (``out`` when it is given; the twin's two rows
+    stacked). ``lo``/``hi`` are in the position dtype."""
     if not _use_kernel(pos_s):
-        return eval_pair_reference(pos_s, depth, c_cov, c_sum, min_dep,
-                                   lo, hi)
-    return kernels.eval_pair(pos_s, depth, c_cov, c_sum, min_dep, lo, hi)
+        return torch.stack(eval_pair_reference(pos_s, depth, c_cov, c_sum,
+                                               min_dep, lo, hi), out=out)
+    return kernels.eval_pair(pos_s, depth, c_cov, c_sum, min_dep, lo, hi,
+                             out=out)
 
 
 # ---------------------------------------------------------------------
@@ -182,12 +184,14 @@ def finalize_chunked_reference(chunks_pos, chunks_delta, seg_lo, seg_hi,
                                min_dep: int = 1, wrap18: bool = False,
                                method: Optional[str] = None,
                                want_state: bool = True,
-                               pos_max: Optional[int] = None):
+                               pos_max: Optional[int] = None, *, out=None):
     pos_s, depth, c_cov, c_sum, delta_s = sort_events_reference(
         _one_buffer(chunks_pos), _one_buffer(chunks_delta), min_dep,
         wrap18, pos_max)
     cover, dsum = eval_pair_reference(pos_s, depth, c_cov, c_sum, min_dep,
                                       seg_lo, seg_hi)
+    if out is not None:
+        cover, dsum = torch.stack([cover, dsum], out=out)
     if not want_state:
         return cover, dsum
     return cover, dsum, pos_s, depth, c_cov, c_sum, delta_s
@@ -196,16 +200,17 @@ def finalize_chunked_reference(chunks_pos, chunks_delta, seg_lo, seg_hi,
 def finalize_chunked(chunks_pos, chunks_delta, seg_lo, seg_hi,
                      min_dep: int = 1, wrap18: bool = False,
                      method: Optional[str] = None, want_state: bool = True,
-                     pos_max: Optional[int] = None):
+                     pos_max: Optional[int] = None, *, out=None):
     """Sort + scan + boundary eval over a tuple of event chunks, queued
-    on one stream with no host synchronisation. Returns (cover, dsum) and,
-    with ``want_state``, the sweep state (pos_s, depth, c_cov, c_sum,
-    delta_s) after them."""
+    on one stream with no host synchronisation. Returns (cover, dsum),
+    the rows of one (2, B) buffer (``out`` when it is given), and, with
+    ``want_state``, the sweep state (pos_s, depth, c_cov, c_sum, delta_s)
+    after them."""
     pos_s, depth, c_cov, c_sum, delta_s = sort_events(
         _one_buffer(chunks_pos), _one_buffer(chunks_delta), min_dep,
         wrap18, pos_max)
     cover, dsum = eval_pair(pos_s, depth, c_cov, c_sum, min_dep, seg_lo,
-                            seg_hi)
+                            seg_hi, out=out)
     if not want_state:
         return cover, dsum
     return cover, dsum, pos_s, depth, c_cov, c_sum, delta_s
@@ -358,7 +363,7 @@ def finalize_encoded_reference(g8, g16, gc8, gc16, raw_pos, raw_delta,
                                wrap18: bool = False,
                                method: Optional[str] = None,
                                want_state: bool = True,
-                               pos_max: Optional[int] = None):
+                               pos_max: Optional[int] = None, *, out=None):
     """The twin of :func:`finalize_encoded`: the decoders' twins, one
     concatenation, :func:`finalize_chunked_reference`."""
     cp, cd = [], []
@@ -371,13 +376,14 @@ def finalize_encoded_reference(g8, g16, gc8, gc16, raw_pos, raw_delta,
         cd += [ones, -ones]
     return finalize_chunked_reference(cp + list(raw_pos), cd + list(raw_delta),
                                       seg_lo, seg_hi, min_dep, wrap18,
-                                      want_state=want_state, pos_max=pos_max)
+                                      want_state=want_state, pos_max=pos_max,
+                                      out=out)
 
 
 def finalize_encoded(g8, g16, gc8, gc16, raw_pos, raw_delta, seg_lo, seg_hi,
                      min_dep: int = 1, wrap18: bool = False,
                      method: Optional[str] = None, want_state: bool = True,
-                     pos_max: Optional[int] = None):
+                     pos_max: Optional[int] = None, *, out=None):
     """Decode the four code groups (mixed u8, mixed u16, const u8, const
     u16; a group may be None), merge them with the raw event chunks in
     JAX's order ``[s8, e8, s16, e16, sc8, ec8, sc16, ec16, *raw_pos]``,
@@ -390,7 +396,7 @@ def finalize_encoded(g8, g16, gc8, gc16, raw_pos, raw_delta, seg_lo, seg_hi,
         raise ValueError("finalize_encoded: no events")
     first = groups[0][3] if groups else raw_pos[0]
     kw = dict(min_dep=min_dep, wrap18=wrap18, want_state=want_state,
-              pos_max=_pos_max(first, pos_max))
+              pos_max=_pos_max(first, pos_max), out=out)
     if not _use_kernel(first):
         return finalize_encoded_reference(g8, g16, gc8, gc16, raw_pos,
                                           raw_delta, seg_lo, seg_hi, **kw)

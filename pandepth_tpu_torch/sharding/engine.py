@@ -75,7 +75,7 @@ class ShardedCoverageEngine:
         if not self.devices:
             raise ValueError("ShardedCoverageEngine: no device given")
         self.n_dev = len(self.devices)
-        self.bounds = layout.shard_bounds(self.n_dev)
+        self.bounds = steps.check_cuts(layout.shard_bounds(self.n_dev))
         self.pos_dtype = pos_dtype_for(layout.total)
         self.pos_sentinel = int(np.iinfo(self.pos_dtype).max)
         self._blocks: List[_Block] = []
@@ -194,7 +194,7 @@ class ShardedCoverageEngine:
 
     def _finalize(self, lo: np.ndarray, hi: np.ndarray):
         """Bucket, upload, carry, sort, scan and evaluate every block;
-        keeps the state. Returns each block's (cover, dsum)."""
+        keeps the state. Returns each block's (2, B) (cover, dsum)."""
         pos2d, delta2d = self._bucketed()
         totals: List[torch.Tensor] = []
         outs = []
@@ -202,11 +202,11 @@ class ShardedCoverageEngine:
             p2, d2 = self._upload_rows(pos2d, delta2d, blk)
             left = torch.cat([t.to(blk.device) for t in totals]) if totals \
                 else torch.zeros(0, dtype=torch.int64, device=blk.device)
-            cover, dsum, tot, blk.state = steps.finalize_rows(
+            both, tot, blk.state = steps.finalize_rows(
                 p2, d2, blk.bounds, left, *self._queries(lo, hi, blk),
                 self.min_dep, self.wrap18, self.pos_sentinel)
             totals.append(tot)
-            outs.append((cover, dsum))
+            outs.append(both)
             del p2, d2
         self._finalized = True
         return outs
@@ -217,14 +217,13 @@ class ShardedCoverageEngine:
         return q[0], q[1]
 
     def _psum(self, outs) -> Tuple[np.ndarray, np.ndarray]:
-        """Every block's (cover, dsum) added on the first device, brought
-        to the host in one copy."""
+        """Every block's (2, B) (cover, dsum) added on the first device,
+        brought to the host in one copy."""
         dev0 = self._blocks[0].device
-        cover, dsum = outs[0]
-        for c, s in outs[1:]:
-            cover = cover + c.to(dev0)
-            dsum = dsum + s.to(dev0)
-        both = torch.stack([cover, dsum]).cpu().numpy()
+        both = outs[0]
+        for o in outs[1:]:
+            both = both + o.to(dev0)
+        both = both.cpu().numpy()
         return both[0], both[1]
 
     def segment_bounds(self, seg_tid: np.ndarray, seg_start: np.ndarray,

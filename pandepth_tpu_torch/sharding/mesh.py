@@ -151,8 +151,7 @@ def state_eval(state: steps.State, row_bounds: torch.Tensor, min_dep: int,
                seg_lo: torch.Tensor, seg_hi: torch.Tensor, group=None):
     """JAX's ``_state_eval``: (cover, dsum) of the int64 segments clipped
     to this rank's range, summed over the ranks (``all_reduce``)."""
-    both = torch.stack(steps.eval_pair_rows(*state, row_bounds, min_dep,
-                                            seg_lo, seg_hi))
+    both = steps.eval_pair_rows(*state, row_bounds, min_dep, seg_lo, seg_hi)
     dist.all_reduce(both, group=group)
     return both[0], both[1]
 
@@ -176,9 +175,10 @@ def sharded_coverage_step(group, flags_mask: int, min_mapq: int,
 
     def run(tid, pos, flag, mapq, opc, opl, opr, offsets, limits, bounds,
             seg_lo, seg_hi):
+        cuts = steps.check_cuts(bounds.tolist())
         agree(group, bounds.device, {
             "world": dist.get_world_size(group), "n_targets": offsets.shape[0],
-            **{f"bound{i}": int(b) for i, b in enumerate(bounds.tolist())}})
+            **{f"bound{i}": int(b) for i, b in enumerate(cuts)}})
         ev_pos, ev_delta = events.extract_events(
             tid, pos, flag, mapq, opc, opl, opr, offsets, limits,
             flags_mask=flags_mask, min_mapq=min_mapq)

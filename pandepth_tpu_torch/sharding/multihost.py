@@ -110,15 +110,15 @@ class MultihostCoverageEngine(ShardedCoverageEngine):
         blk = self._blocks[0]
         p2, d2 = self._row
         self._row = None
-        cover, dsum, _, blk.state = steps.finalize_rows(
+        both, _, blk.state = steps.finalize_rows(
             p2, d2, blk.bounds, self._left, *self._queries(lo, hi, blk),
             self.min_dep, self.wrap18, self.pos_sentinel)
         self._finalized = True
-        return [(cover, dsum)]
+        return [both]
 
     def _psum(self, outs) -> Tuple[np.ndarray, np.ndarray]:
         """(cover, dsum) summed over the ranks, brought to the host."""
-        both = torch.stack(outs[0])
+        both = outs[0]
         dist.all_reduce(both, group=self.group)
         both = both.cpu().numpy()
         return both[0], both[1]

@@ -59,6 +59,16 @@ def shard_carry(pos2d: torch.Tensor, delta2d: torch.Tensor,
     return shard_carry_reference(pos2d, delta2d, bounds, left)
 
 
+def check_cuts(cuts):
+    """``cuts`` (a host sequence of range cuts), refused unless they are
+    non-decreasing: the ``eval_pair_rows`` kernel finds the rows that a
+    segment crosses by searching them. Returns ``cuts``."""
+    if any(a > b for a, b in zip(cuts[:-1], cuts[1:])):
+        raise ValueError(f"range cuts must be non-decreasing, got "
+                         f"{list(cuts)}")
+    return cuts
+
+
 def eval_pair_rows_reference(pos_s2: torch.Tensor, depth2: torch.Tensor,
                              c_cov2: torch.Tensor, c_sum2: torch.Tensor,
                              bounds: torch.Tensor, min_dep: int,
@@ -81,15 +91,16 @@ def eval_pair_rows(pos_s2: torch.Tensor, depth2: torch.Tensor,
                    c_cov2: torch.Tensor, c_sum2: torch.Tensor,
                    bounds: torch.Tensor, min_dep: int, lo: torch.Tensor,
                    hi: torch.Tensor):
-    """(cover, dsum) int64 per segment over the rows of one device:
-    ``lo``/``hi`` (int64 global bounds) clipped to each row's
-    [bounds[r], bounds[r+1]], Q(hi) - Q(lo) on that row's state, summed
-    over the rows (JAX's ``local_eval`` and its ``psum``)."""
+    """(cover, dsum) int64 per segment over the rows of one device, the
+    rows of one (2, B) buffer: ``lo``/``hi`` (int64 global bounds)
+    clipped to each row's [bounds[r], bounds[r+1]], Q(hi) - Q(lo) on that
+    row's state, summed over the rows (JAX's ``local_eval`` and its
+    ``psum``). ``bounds`` is non-decreasing (``check_cuts``)."""
     if sweep._use_kernel(pos_s2):
         return kernels.eval_pair_rows(pos_s2, depth2, c_cov2, c_sum2,
                                       bounds, min_dep, lo, hi)
-    return eval_pair_rows_reference(pos_s2, depth2, c_cov2, c_sum2, bounds,
-                                    min_dep, lo, hi)
+    return torch.stack(eval_pair_rows_reference(
+        pos_s2, depth2, c_cov2, c_sum2, bounds, min_dep, lo, hi))
 
 
 def sort_scan_rows(pos2d: torch.Tensor, delta2d: torch.Tensor, min_dep: int,
@@ -124,9 +135,8 @@ def finalize_rows(pos2d: torch.Tensor, delta2d: torch.Tensor,
     stream: the carry (in place into ``pos2d``/``delta2d``), the sort and
     scans, and the clipped eval of ``lo``/``hi``. ``bounds`` is the
     (rows + 1,) int64 range cuts of these rows, ``left`` the int64
-    totals of the rows on earlier devices. Returns (cover, dsum, the
-    rows' delta totals, the state (pos_s2, depth2, c_cov2, c_sum2))."""
+    totals of the rows on earlier devices. Returns ((2, B) (cover, dsum),
+    the rows' delta totals, the state (pos_s2, depth2, c_cov2, c_sum2))."""
     totals = shard_carry(pos2d, delta2d, bounds, left)
     state = sort_scan_rows(pos2d, delta2d, min_dep, wrap18, pos_max)
-    cover, dsum = eval_pair_rows(*state, bounds, min_dep, lo, hi)
-    return cover, dsum, totals, state
+    return eval_pair_rows(*state, bounds, min_dep, lo, hi), totals, state

@@ -292,6 +292,127 @@ def enc_edge_groups(pos_dt, seed: int = 0):
 
 
 # ---------------------------------------------------------------------
+# the edges of eval_pair's cooperative search and of its dense tiles
+
+#: event words that a dense tile of the eval_pair kernel stages in shared
+#: memory (EP_WIN of csrc/sweep_kernels.cu; chip_smoke.py holds it to the
+#: built library's)
+SEARCH_WIN = 3072
+
+
+def _search_queries(rng, first: int, p: np.ndarray, top: int, span: int,
+                    m: int):
+    """(lo, hi) int64 in seeded order: boundaries before every event, at
+    r = 1 (``first``, the least position, is held by one event), on
+    events and beside them, at random, and past every event up to
+    ``top`` - 1 (an even count of them, paired), some pairs reversed (lo
+    > hi); then a zero-length segment on every fifth boundary."""
+    k = rng.randint(0, p.shape[0], m)
+    x = np.concatenate([[0, first - 1, first, first + 1, top - 2, top - 1],
+                        p[k], np.minimum(p[k] + 1, top - 1), p[k] - 1,
+                        rng.randint(0, span, m)]).astype(np.int64)
+    x = x[rng.permutation(x.shape[0])]
+    lo, hi = x[0::2].copy(), x[1::2].copy()
+    swap = lo > hi
+    swap[::7] = False
+    lo[swap], hi[swap] = hi[swap], lo[swap]
+    return np.concatenate([lo, x[::5]]), np.concatenate([hi, x[::5]])
+
+
+def search_edge_cases(seed: int = 0):
+    """eval_pair's edges as (name, pos, delta, pos dtype, min_dep, lo,
+    hi): events as ``sweep_edge_events`` gives them (int64 position values
+    of the tier, sentinel slots at the tier's max with delta 0, in seeded
+    order; int32 deltas) and int64 segment bounds. On every tier: 1, 2,
+    15, 16, 17, 255, 256 and 257 events (around the 16-way split) and a
+    few dense tiles' worth (3 * SEARCH_WIN + 5), each queried before every
+    event (r = 0), at r = 1, on events and beside them, and past every
+    event up to the tier's max less one, with zero-length segments and
+    some with lo > hi, in seeded order; a run of equal positions longer
+    than a 16-way round's stride, queried on it and beside it; and 40,000
+    sorted adjacent segments over events that are sparse but for one
+    cluster, so that a tile of 16 to 400 consecutive segments spans more
+    than SEARCH_WIN events over the cluster and fewer elsewhere, then the
+    same segments shuffled. On the uint32 tier alone: 2^19 adjacent
+    segments over 10 events each, whose tiles of 400 or more segments
+    span more than SEARCH_WIN events and whose sub-tiles of 256 fewer."""
+    rng = np.random.RandomState(seed)
+    cases = []
+    for pos_dt, span in TIER_SPANS:
+        tier = np.dtype(pos_dt).name
+        top = int(np.iinfo(pos_dt).max)
+
+        def events(p, k):
+            delta = rng.choice([-1, 1, 1, 2], p.shape[0]).astype(np.int32)
+            tail = p.shape[0] // 9 if p.shape[0] >= 16 else 0
+            pos = np.concatenate([p, np.full(tail, top, np.int64)])
+            delta = np.concatenate([delta, np.zeros(tail, np.int32)])
+            perm = rng.permutation(pos.shape[0])
+            return pos[perm], delta[perm], pos_dt, 1 + 2 * (k % 2)
+
+        for k, n in enumerate((1, 2, 15, 16, 17, 255, 256, 257,
+                               3 * SEARCH_WIN + 5)):
+            p = rng.randint(10, span - 10, n).astype(np.int64)
+            p[:n // 4] = p[-1]                            # duplicates
+            p[0] = 3                                      # the one least
+            cases.append((f"{tier} {n} events", *events(p, k),
+                          *_search_queries(rng, 3, p, top, span, 40)))
+        n, run = 5000, 3000
+        p = rng.randint(10, span - 10, n).astype(np.int64)
+        p[0], p[1:run + 1] = 3, span // 2
+        lo, hi = _search_queries(rng, 3, p, top, span, 40)
+        v = np.array([span // 2 - 1, span // 2, span // 2 + 1], np.int64)
+        cases.append((f"{tier} a run of {run} equal positions in {n}",
+                      *events(p, 0), np.concatenate([lo, v, v]),
+                      np.concatenate([hi, v + 5, v[::-1]])))
+        c = span // 2
+        p = np.concatenate([[3], rng.randint(10, span - 10, 4000),
+                            rng.randint(c, c + span // 400, 60_000)])
+        w = span // 40_000
+        lo = np.arange(40_000, dtype=np.int64) * w
+        cases.append((f"{tier} dense tiles, one cluster", *events(p, 1), lo,
+                      lo + w))
+        perm = rng.permutation(lo.shape[0])
+        cases.append((f"{tier} dense tiles, shuffled", *events(p, 0),
+                      lo[perm], lo[perm] + w))
+    # wide tiles: 2^19 adjacent segments with 10 events each on average,
+    # so a tile of 400 or more spans more than SEARCH_WIN events and a
+    # sub-tile of 256 fewer
+    span = dict(TIER_SPANS)[np.uint32]
+    w = span >> 19
+    p = np.concatenate([[3], rng.randint(10, w << 19, 10 << 19)])
+    delta = rng.choice([-1, 1, 1, 2], p.shape[0]).astype(np.int32)
+    lo = np.arange(1 << 19, dtype=np.int64) * w
+    cases.append(("uint32 dense wide tiles", p[rng.permutation(p.shape[0])],
+                  delta, np.uint32, 1, lo, lo + w))
+    return cases
+
+
+def rows_edge_segments(bounds: np.ndarray, seed: int = 0):
+    """eval_pair_rows' edges over the range cuts ``bounds`` ((rows + 1,)
+    int64, increasing) as (lo, hi) int64: segments that cross no row
+    (zero-length inside a range and on each cut), one (inside a range,
+    and each range whole), two (across each inner cut) and every row (the
+    whole axis, and its first and last cell), clips on a range's ends (a
+    segment ending on a cut, one starting on it, each a cell either side),
+    and some reversed (lo > hi) across cuts."""
+    rng = np.random.RandomState(seed)
+    b = np.asarray(bounds, np.int64)
+    a, z = b[:-1], b[1:]
+    mid = a + (z - a) // 2
+    inner = b[1:-1]
+    one = max(int((b[-1] - b[0]) // (7 * a.shape[0])), 1)
+    lo = np.concatenate([mid, b, a + one, a, inner - one, [b[0], b[0]],
+                         b[1:] - 1, b[1:], inner - 1, inner, inner + 1])
+    hi = np.concatenate([mid, b, mid, z, inner + one, [b[-1], b[0] + 1],
+                         b[1:], b[1:] + one, inner, inner + 1, inner - one])
+    step = max(int((b[-1] - b[0]) // 50), 1)
+    far = np.sort(rng.randint(int(b[0]), int(b[-1]), 40)).astype(np.int64)
+    return (np.concatenate([lo, far, far + step]),
+            np.concatenate([hi, far[::-1], far + 3 * step]))
+
+
+# ---------------------------------------------------------------------
 # the edges of the chained-scan kernels (extract_events and bucket_events)
 
 #: ops per tile of the extract_events kernel and events per tile of the

@@ -21,6 +21,7 @@ from pandepth_tpu.device.layout import GenomeLayout
 from pandepth_tpu.io.bam import ReadBatch
 from pandepth_tpu.sharding.engine import ShardedCoverageEngine as JaxSharded
 from pandepth_tpu.sharding.engine import _sharded_steps
+from pandepth_tpu_torch import synth
 from pandepth_tpu_torch.device import kernels
 from pandepth_tpu_torch.sharding import steps
 from pandepth_tpu_torch.sharding.engine import ShardedCoverageEngine
@@ -196,6 +197,64 @@ def test_kernel_twins_match_jax_programs(tier):
                                          torch.from_numpy(hi))
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+
+@pytest.mark.parametrize("hot", [False, True])
+@pytest.mark.parametrize("tier", list(TIERS))
+def test_eval_pair_rows_edges_match_jax_programs(tier, hot):
+    """eval_pair_rows' twin on JAX's own state against ``finalize`` and
+    ``eval_only`` at ``synth.rows_edge_segments`` over 8 rows (segments
+    crossing no row, one, two and every row; clips on a range's ends;
+    reversed ones); with ``hot``, the rows between the first and the last
+    hold no event."""
+    n, min_dep = 8, 1
+    lay, port, ref = _engines(tier, n, False, min_dep)
+    _feed((port, ref), lay, seed=13, hot=hot)
+    lo, hi = synth.rows_edge_segments(ref.bounds, seed=2)
+    fin, ev = _sharded_steps(ref.mesh, n, min_dep, False, "scan_unrolled")
+    bounds = jnp.asarray(ref.bounds)
+    jout = fin(*ref._bucketed(), bounds, jnp.asarray(lo), jnp.asarray(hi))
+    state = [torch.from_numpy(np.asarray(j).astype(np.int64)
+                              if np.asarray(j).dtype == np.uint32
+                              else np.array(j)) for j in jout[2:6]]
+    if hot:
+        counts = [int((r[1:] != 0).sum()) for r in port._bucketed()[1]]
+        assert counts[0] > 0 and not any(counts[1:-1])
+    want = ev(*jout[2:6], bounds, jnp.asarray(lo), jnp.asarray(hi))
+    got = steps.eval_pair_rows_reference(*state, torch.from_numpy(ref.bounds),
+                                         min_dep, torch.from_numpy(lo),
+                                         torch.from_numpy(hi))
+    for g, w, f in zip(got, want, jout[:2]):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+        np.testing.assert_array_equal(g.numpy(), np.asarray(f))
+
+
+def test_rows_edge_segments_reach_their_edges():
+    """``synth.rows_edge_segments`` has segments crossing 0, 1, 2 and
+    every row, segments with an end on a cut, and reversed ones."""
+    for lengths in TIERS.values():
+        b = GenomeLayout(np.asarray(lengths, np.int64)).shard_bounds(8)
+        lo, hi = synth.rows_edge_segments(b, seed=2)
+        crossed = sum((np.clip(lo, b[r], b[r + 1]) != np.clip(hi, b[r],
+                                                                b[r + 1]))
+                      .astype(int) for r in range(8))
+        assert {0, 1, 2, 8} <= set(crossed.tolist())
+        assert np.isin(lo, b).any() and np.isin(hi, b).any()
+        assert (lo > hi).any()
+
+
+def test_range_cuts_must_not_decrease():
+    """The eval_pair_rows kernel searches the range cuts, so the host
+    refuses decreasing cuts where they are made or handed in; equal
+    neighbours (an empty range) pass."""
+    lay = GenomeLayout(np.array([5000, 700], np.int64))
+    cuts = lay.shard_bounds(8)
+    assert steps.check_cuts(cuts) is cuts
+    assert steps.check_cuts([0, 10, 10, 20]) == [0, 10, 10, 20]
+    with pytest.raises(ValueError, match="non-decreasing"):
+        steps.check_cuts([0, 20, 10, 30])
+    eng = ShardedCoverageEngine(lay, devices=["cpu"] * 3)
+    assert (np.diff(eng.bounds) >= 0).all()
 
 
 def test_kernels_take_no_cpu_tensors():

@@ -190,6 +190,75 @@ def test_eval_pair_matches_jax(tier, min_dep):
     _assert_same((jcov, jsum), (cov, dsum))
 
 
+SEARCH_EDGES = synth.search_edge_cases(seed=6)
+
+
+@pytest.mark.parametrize("case", range(len(SEARCH_EDGES)),
+                         ids=[f"{k}-{c[0]}" for k, c in
+                              enumerate(SEARCH_EDGES)])
+def test_eval_pair_search_edges_match_jax(case):
+    """The edges of the eval_pair kernel's cooperative search and dense
+    tiles (the cases chip_smoke.py holds the kernel to its twin on):
+    event counts around the 16-way split, boundaries before, on, beside
+    and past the events, zero-length and reversed segments, a long run of
+    equal positions, dense tiles wider and narrower than the staging
+    window, unsorted segments."""
+    _, pos, delta, np_dt, min_dep, lo, hi = SEARCH_EDGES[case]
+    js = jsweep.sort_events(jnp.asarray(pos.astype(np_dt)),
+                            jnp.asarray(delta), min_dep=min_dep)
+    jout = jsweep.eval_pair(*js[:4], jnp.int32(min_dep),
+                            jnp.asarray(lo.astype(np_dt)),
+                            jnp.asarray(hi.astype(np_dt)))
+    st = sweep.sort_events(_dev(pos, np_dt), torch.from_numpy(delta),
+                           min_dep=min_dep, pos_max=_sentinel(np_dt))
+    out = sweep.eval_pair(*st[:4], min_dep, _dev(lo, np_dt), _dev(hi, np_dt))
+    _assert_same(jout, out)
+
+
+def _tile_spans(pos_s: np.ndarray, lo: np.ndarray, hi: np.ndarray, t: int):
+    """r(max) - r(min) over each tile of ``t`` consecutive segments."""
+    n = lo.shape[0] // t * t
+    x = np.stack([lo[:n], hi[:n]], 1).reshape(-1, 2 * t)
+    return (np.searchsorted(pos_s, x.max(1))
+            - np.searchsorted(pos_s, x.min(1)))
+
+
+def test_search_edge_cases_reach_their_edges():
+    """Each case of ``synth.search_edge_cases`` has the boundaries its
+    name promises: r = 0, r = 1, on an event and past every event; zero-
+    length and reversed segments; a run longer than a 16-way stride;
+    tiles of 16 to 400 sorted segments both wider and narrower than the
+    staging window; and tiles of 400 or more wider than it whose sub-tiles
+    of 256 are narrower."""
+    counts = set()
+    for name, pos, delta, np_dt, _, lo, hi in SEARCH_EDGES:
+        pos_s = np.sort(pos)
+        x = np.concatenate([lo, hi])
+        r = np.searchsorted(pos_s, x)
+        live = int((pos < _sentinel(np_dt)).sum())
+        counts.add(live)
+        if "dense" not in name:
+            assert (r == 0).any() and (r == 1).any()
+            assert np.isin(x, pos_s).any()
+            assert (x == _sentinel(np_dt) - 1).any() and r.max() == live
+            assert (lo == hi).any() and (lo > hi).any()
+        if "run" in name:
+            v, c = np.unique(pos_s, return_counts=True)
+            assert c.max() > live / 17 and np.isin(v[c.argmax()], x)
+        if "one cluster" in name:
+            for t in (16, 32, 64, 128, 256, 400):
+                spans = _tile_spans(pos_s, lo, hi, t)
+                assert spans.max() > synth.SEARCH_WIN
+                assert spans.min() <= synth.SEARCH_WIN
+        if "shuffled" in name:
+            assert (np.diff(lo) < 0).any()
+        if "wide" in name:
+            for t in (400, 500, 1000):
+                assert _tile_spans(pos_s, lo, hi, t).min() > synth.SEARCH_WIN
+            assert _tile_spans(pos_s, lo, hi, 256).max() <= synth.SEARCH_WIN
+    assert {1, 2, 15, 16, 17, 255, 256, 257} <= counts
+
+
 @pytest.mark.parametrize("wrap18", [False, True])
 @pytest.mark.parametrize("tier", sorted(TIERS))
 def test_finalize_chunked_matches_jax(tier, wrap18):
@@ -261,6 +330,37 @@ def test_jax_state_through_convert(tier):
     assert back[0].dtype == np.dtype(np_dt)
     for a, b in zip(host, back):
         np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("encoded", [False, True])
+def test_eval_pair_fills_one_two_row_buffer(encoded):
+    """(cover, dsum) come back as the rows of one (2, B) buffer, ``out``
+    when it is given, through eval_pair and both finalizes: the engine
+    brings that buffer to the host in one copy, with no stack."""
+    np_dt = np.uint32
+    pos, delta = _events("uint32", 900, seed=8)
+    lo, hi = _queries("uint32", pos, seed=9)
+    q = (_dev(lo, np_dt), _dev(hi, np_dt))
+    st = sweep.sort_events(_dev(pos, np_dt), torch.from_numpy(delta),
+                           min_dep=1, pos_max=_sentinel(np_dt))
+    want = torch.stack(sweep.eval_pair_reference(*st[:4], 1, *q))
+    assert torch.equal(sweep.eval_pair(*st[:4], 1, *q), want)
+    buf = torch.full((2, lo.shape[0]), -7, dtype=torch.int64)
+    assert sweep.eval_pair(*st[:4], 1, *q, out=buf) is buf
+    assert torch.equal(buf, want)
+    buf.fill_(-7)
+    if encoded:
+        out = sweep.finalize_encoded(None, None, None, None,
+                                     [_dev(pos, np_dt)],
+                                     [torch.from_numpy(delta)], *q,
+                                     pos_max=_sentinel(np_dt), out=buf)
+    else:
+        out = sweep.finalize_chunked([_dev(pos, np_dt)],
+                                     [torch.from_numpy(delta)], *q,
+                                     pos_max=_sentinel(np_dt), out=buf)
+    assert torch.equal(buf, want) and len(out) == 7
+    assert out[0].data_ptr() == buf[0].data_ptr()
+    assert out[1].data_ptr() == buf[1].data_ptr()
 
 
 def test_device_pos_dtype_tiers():

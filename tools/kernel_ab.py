@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
-"""Time the port's look-back kernels (K2 ``sweep_scan``, K8
-``decode_enc``, K6 ``extract_events``, K10 ``bucket_events``) at the main
-paths' shapes, on one NVIDIA GPU, for the ``pandepth_tpu_torch`` of a
-given checkout:
+"""Time the port's redesigned kernels (K2 ``sweep_scan``, K8
+``decode_enc``, K6 ``extract_events``, K10 ``bucket_events``, K3
+``eval_pair``, K9's ``eval_pair_rows``) at the main paths' shapes, on one
+NVIDIA GPU, for the ``pandepth_tpu_torch`` of a given checkout:
 
     python3 tools/kernel_ab.py [--root DIR] [--iters N] [--out FILE]
+                               [--only NAME,...]
 
 ``--root`` is the directory that holds the package (default: this
 repository), so two commits compare in one process each, on one card:
@@ -33,10 +34,24 @@ the same for every root:
   ops per read, every op code);
 - bucket_events: 15,199,506 uint32-tier events (7,599,753 sorted 150 bp
   reads' starts, then their ends, on the genome's layout) over 2 and 8
-  ranges (``layout.shard_bounds``).
+  ranges (``layout.shard_bounds``);
+- eval_pair on the sweep state of those events (``sweep_scan``, min_dep
+  1) at the chr path's 300 segments (25 of 10 Mb a contig:
+  ``eval_pair_chr``) and at one 1M-window chunk of a ``-w 150`` grid
+  (contig 0's first 150 Mb: ``eval_pair_win``) and of a ``-w 1500``
+  grid (the axis' first 1.5 Gb: ``eval_pair_win1500``), and on the state
+  of 188,756 sorted 150 bp reads (377,512 events) at 200,000 sorted
+  exome-sized regions of 150-300 bp (``eval_pair_bed``); beside each,
+  ``torch.searchsorted`` of the same 2B boundaries (the search alone, a
+  yardstick);
+- eval_pair_rows on the 8-row block of those 15,199,506 events (rows of
+  ``layout.shard_bounds(8)``, 2^21 + 1 slots, slot 0 the row's carry,
+  sentinel padding, K2 per row) at the 300 chr segments.
 
-Each kernel is first held array-equal to its plain twin. Prints one JSON
-line, and appends it to the file ``--out`` names, if given.
+Each kernel is first held array-equal to its plain twin. ``--only``
+keeps the kernels of those names (``eval_pair`` takes its four
+shapes). Prints one JSON line, and appends it to the file ``--out``
+names, if given.
 """
 
 from __future__ import annotations
@@ -147,6 +162,84 @@ def bucket_inputs(dev):
     return lay, words, torch.cat([delta, -delta])
 
 
+def eval_state(dev, n_reads: int, seed: int):
+    """The layout, the sweep state (pos_s, depth, c_cov, c_sum) of
+    ``n_reads`` sorted 150 bp reads on the genome's layout (their starts
+    and ends) and the sorted deltas."""
+    import torch
+
+    from pandepth_tpu_torch.device import kernels
+
+    lay = genome_layout()
+    g = torch.Generator(device=dev).manual_seed(seed)
+    starts = torch.sort(torch.randint(0, int(lay.total) - 200, (n_reads,),
+                                      generator=g, device=dev,
+                                      dtype=torch.int64))[0]
+    one = torch.ones(n_reads, dtype=torch.int32, device=dev)
+    pos_s, order = torch.sort(torch.cat([starts, starts + 150]), stable=True)
+    delta_s = torch.cat([one, -one])[order]
+    return (lay, (pos_s, *kernels.sweep_scan(pos_s, delta_s, 1, False,
+                                             U32_MAX)), delta_s)
+
+
+def chr_segments(lay, dev):
+    """(lo, hi) int64 of 25 segments of 10 Mb a contig."""
+    import numpy as np
+    import torch
+
+    k = np.arange(25, dtype=np.int64) * 10_000_000
+    lo = (lay.offsets[:, None] + k[None, :]).ravel()
+    hi = np.minimum(lo + 10_000_000, np.repeat(lay.offsets + lay.lengths, 25))
+    return (torch.from_numpy(lo).to(dev), torch.from_numpy(hi).to(dev))
+
+
+def bed_inputs(dev):
+    """The state of 188,756 sorted reads and 200,000 sorted regions of
+    150-300 bp over the genome."""
+    import torch
+
+    lay, st, _ = eval_state(dev, 188_756, 5)
+    g = torch.Generator(device=dev).manual_seed(6)
+    lo = torch.sort(torch.randint(0, int(lay.total) - 400, (200_000,),
+                                  generator=g, device=dev,
+                                  dtype=torch.int64))[0]
+    hi = lo + torch.randint(150, 301, (200_000,), generator=g, device=dev,
+                            dtype=torch.int64)
+    return st, lo, hi
+
+
+def row_block(lay, pos_s, delta_s, rows: int = 8, width: int = (1 << 21) + 1):
+    """The sharded engine's (rows, width) block of the sorted events: row
+    r holds slot 0 = (bounds[r], the depth carried in) and then its
+    range's events, sentinel padding after them; with each row's K2."""
+    import numpy as np
+    import torch
+
+    from pandepth_tpu_torch.device import kernels
+
+    dev = pos_s.device
+    bounds = torch.from_numpy(lay.shard_bounds(rows)).to(dev)
+    cut = torch.searchsorted(pos_s, bounds).cpu().numpy()
+    cum = torch.cumsum(delta_s.to(torch.int64), 0)
+    p2 = torch.full((rows, width), U32_MAX, dtype=torch.int64, device=dev)
+    d2 = torch.zeros((rows, width), dtype=torch.int32, device=dev)
+    for r in range(rows):
+        a, z = int(cut[r]), int(cut[r + 1])
+        if z - a + 1 > width:
+            raise ValueError(f"row {r} holds {z - a} events")
+        p2[r, 0] = bounds[r]
+        d2[r, 0] = cum[a - 1] if a else 0
+        p2[r, 1:1 + z - a] = pos_s[a:z]
+        d2[r, 1:1 + z - a] = delta_s[a:z]
+    dep = torch.empty_like(d2)
+    c_cov = torch.empty(p2.shape, dtype=torch.int64, device=dev)
+    c_sum = torch.empty_like(c_cov)
+    for r in range(rows):
+        kernels.sweep_scan(p2[r], d2[r], 1, False, U32_MAX,
+                           out=(dep[r], c_cov[r], c_sum[r]))
+    return (p2, dep, c_cov, c_sum), bounds, np.diff(cut)
+
+
 def device_ops(fn, iters: int) -> dict:
     """Each device op's own time and count per call, by name, under
     torch.profiler after a warm-up call."""
@@ -188,7 +281,12 @@ def main() -> int:
     ap.add_argument("--root", default=HERE)
     ap.add_argument("--iters", type=int, default=20)
     ap.add_argument("--out", help="a JSON-lines file to append the result to")
+    ap.add_argument("--only", help="comma-separated kernel names to time")
     args = ap.parse_args()
+    only = set(args.only.split(",")) if args.only else None
+
+    def wanted(name: str) -> bool:
+        return only is None or name in only
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
     import torch
@@ -210,22 +308,26 @@ def main() -> int:
     kernels.library()
     out = {"root": root, "card": card, "iters": args.iters}
 
-    pos_s, delta = sweep_inputs(dev)
-    want = sweep.sweep_scan_reference(pos_s, delta, 1, False, U32_MAX)
-    out["sweep_scan"] = {"events": N_EVENTS, **timed(
-        lambda: kernels.sweep_scan(pos_s, delta, 1, False, U32_MAX), want,
-        args.iters)}
-    del pos_s, delta, want
+    if wanted("sweep_scan"):
+        pos_s, delta = sweep_inputs(dev)
+        want = sweep.sweep_scan_reference(pos_s, delta, 1, False, U32_MAX)
+        out["sweep_scan"] = {"events": N_EVENTS, **timed(
+            lambda: kernels.sweep_scan(pos_s, delta, 1, False, U32_MAX),
+            want, args.iters)}
+        del pos_s, delta, want
 
-    grp = decode_group(dev)
-    want = sweep.decode_const_group_reference(*grp, pos_max=U32_MAX)
-    out["decode_enc"] = {"windows": sum(ROWS), "blocks": len(ROWS), **timed(
-        lambda: sweep.decode_const_group(*grp, pos_max=U32_MAX), want,
-        args.iters)}
-    del grp, want
+    if wanted("decode_enc"):
+        grp = decode_group(dev)
+        want = sweep.decode_const_group_reference(*grp, pos_max=U32_MAX)
+        out["decode_enc"] = {"windows": sum(ROWS), "blocks": len(ROWS),
+                             **timed(lambda: sweep.decode_const_group(
+                                 *grp, pos_max=U32_MAX), want, args.iters)}
+        del grp, want
 
     for name, multi in (("extract_events", False),
                         ("extract_events_multi_op", True)):
+        if not wanted("extract_events"):
+            break
         cols, offsets, limits = extract_inputs(dev, multi)
         xargs = (*cols, offsets, limits, 1796, 0, U32_MAX, torch.int64)
         want = events.extract_events_reference(*xargs)
@@ -235,7 +337,7 @@ def main() -> int:
         del cols, xargs, want
 
     lay, words, dl = bucket_inputs(dev)
-    for world in (2, 8):
+    for world in (2, 8) if wanted("bucket_events") else ():
         bounds = torch.from_numpy(lay.shard_bounds(world)).to(dev)
         want = mesh.bucket_events_reference(words, dl, bounds,
                                             kernels.TIER_U32)
@@ -243,6 +345,40 @@ def main() -> int:
             lambda: kernels.bucket_events(words, dl, bounds,
                                           kernels.TIER_U32),
             want, args.iters, bucket_defined)}
+    del words, dl
+
+    from pandepth_tpu_torch.sharding import steps
+
+    lay, st, delta_s = eval_state(dev, N_EVENTS // 2, 3)
+    lo, hi = chr_segments(lay, dev)
+    win_lo = int(lay.offsets[0]) + 150 * torch.arange(
+        1 << 20, dtype=torch.int64, device=dev)
+    bed_st, bed_lo, bed_hi = bed_inputs(dev)
+    for name, state, a, z in (("eval_pair_chr", st, lo, hi),
+                              ("eval_pair_bed", bed_st, bed_lo, bed_hi),
+                              ("eval_pair_win", st, win_lo, win_lo + 150),
+                              ("eval_pair_win1500", st, 10 * win_lo,
+                               10 * win_lo + 1500)):
+        if not wanted("eval_pair"):
+            break
+        want = sweep.eval_pair_reference(*state, 1, a, z)
+        x = torch.cat([a, z])
+        out[name] = {"events": int(state[0].numel()), "segments": a.numel(),
+                     "searchsorted_ms": cuda_ms(
+                         lambda: torch.searchsorted(state[0], x), args.iters),
+                     **timed(lambda: kernels.eval_pair(*state, 1, a, z), want,
+                             args.iters)}
+    del bed_st, win_lo
+    state2, bounds, per_row = row_block(lay, st[0], delta_s)
+    del st, delta_s
+    if wanted("eval_pair_rows"):
+        want = steps.eval_pair_rows_reference(*state2, bounds, 1, lo, hi)
+        out["eval_pair_rows"] = {
+            "rows": int(bounds.numel() - 1),
+            "width": int(state2[0].shape[1]),
+            "events_per_row": per_row.tolist(), "segments": lo.numel(),
+            **timed(lambda: kernels.eval_pair_rows(*state2, bounds, 1, lo,
+                                                   hi), want, args.iters)}
     line = json.dumps(out)
     print(line, flush=True)
     if args.out:
