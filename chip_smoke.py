@@ -37,8 +37,10 @@ see :func:`worker`.) Phases, one line each; any failure exits non-zero:
             the encoder cuts short: all of them staged as raw pairs);
             the sharded engine's 8-row blocks of the chr path (timed) and
             of the bed path (shard_carry, each row's sweep_scan,
-            eval_pair_rows); extract_events and eval_boundaries on the
-            fixture's first 2^20-read batch as
+            eval_pair_rows); eval_boundaries on the lo and hi of every
+            counted path's segments (timed on chr and bed for notes);
+            extract_events and eval_boundaries on the fixture's first
+            2^20-read batch as
             pandepth_tpu_torch.run.read_batches yields it (one op per
             read; timed) and extract_events on a seeded 2^20-read
             multi-op batch on the fixture's layout (timed); all of them
@@ -50,7 +52,12 @@ see :func:`worker`.) Phases, one line each; any failure exits non-zero:
             empty rows, a carry past int32, an event at the axis's end,
             segments across and inside ranges and of zero length, 1, 8
             and 4 + 4 rows in two blocks, with the whole segment_stats
-            against the twins' engine); bucket_events on the chr path's
+            against the twins' engine; shard_carry on
+            synth.carry_edge_blocks: row payloads of 1, a run - 1, a run,
+            a run + 1 and a few of its runs over 1, 8 and 37 rows
+            and 70,000 rows, on both 32-bit tiers, an all-zero row,
+            carries past 2^31 at a row edge, rows on earlier devices);
+            bucket_events on the chr path's
             events over 1, 2, 4 and 8 ranges (timed, with the library's
             stable sort of the destinations beside it) and on every tier
             with dead slots, a hot range, an event at the axis's end, 0
@@ -83,25 +90,32 @@ see :func:`worker`.) Phases, one line each; any failure exits non-zero:
             events, boundaries before, on, beside and past the events,
             zero-length and reversed segments, a run of equal positions
             longer than a 16-way round's stride, dense tiles wider and
-            narrower than the window, unsorted segments; eval_pair_rows
+            narrower than the window, unsorted segments, and
+            eval_boundaries, the same search body one-sided, on every
+            case's lo and hi concatenated; eval_pair_rows
             at segments crossing no row, one, two and every row and
             clips on a range's ends, and over 5,000 rows (more cuts than
-            it stages in shared memory). 50 launches of each of those six
+            it stages in shared memory). 50 launches of each of those eight
             kernels on its main path's inputs (the chr path's, the 8-row
-            chr block's; extract_events on both CIGAR batches), every
-            output array-equal to the first and to the twin; the device
+            chr block's, the step path's first batch; extract_events on
+            both CIGAR batches), every output array-equal to the first
+            and to the twin (shard_carry with slot 0 of every row
+            overwritten before each launch); the device
             time of each (torch.profiler) beside its CUDA-event time and
             its host time per call, with the kernels and memsets a call
             puts on the card, eval_pair also on the bed path's 200,000
             regions and a 1M-window chunk of a -w 150 grid over the chr
             path's state (and of a -w 1500 grid, whose tiles span more
-            events than the window), beside torch.searchsorted of the same
-            boundaries (the search alone) as a yardstick; torch.cumsum of
-            the chr path's deltas and piece lengths as a yardstick for
-            one of sweep_scan's sums; the card's time per dependent load
-            (one eval_boundaries query on 2 and 2^24 events), and each
-            timed search shape's bound restated as the larger of its
-            byte bound and its dependent loads
+            events than the window), and eval_boundaries on the step,
+            chr and bed paths' boundaries, each beside torch.searchsorted
+            of the same boundaries (the search alone) as a yardstick;
+            torch.cumsum of the chr path's deltas and piece lengths as a
+            yardstick for one of sweep_scan's sums; the sum of each row's
+            deltas (torch.sum) as one for shard_carry; the card's time per
+            dependent load (kernels.chase, a one-thread pointer chase of
+            64 and 4,096 links), and each timed search shape's bound
+            restated as the larger of its byte bound and its dependent
+            loads
 5. golden   the port's CLI on cuda over the golden fixtures: chr, bed,
             gene and gene_gc from the BAM, native with encoded windows,
             native with raw pairs and with PANDEPTH_NO_NATIVE=1, and chr
@@ -243,22 +257,45 @@ def search_bytes(n: int, word: int) -> int:
     return (max(n - 1, 1).bit_length() + 1) * word + 20
 
 
-def eval_bytes(n: int, word: int, b: int, span: int) -> int:
-    """The bytes eval_pair needs for ``b`` segments over ``n`` events of
-    ``word`` bytes, their boundaries' lower bounds ``span`` events apart
-    at most: each boundary read and each (cover, dsum) written once, and
-    the state's words the searches need, the fewer of every boundary's
-    own search (:func:`search_bytes`) and one read of the span (a
-    position, a depth and two prefixes an event)."""
-    return b * (2 * word + 16) + min(2 * b * search_bytes(n, word),
-                                     (span + 1) * (word + 20))
+def eval_bytes(n: int, word: int, b: int, span: int, sides: int = 2) -> int:
+    """The bytes eval_pair (``sides`` 2) or eval_boundaries (1) needs for
+    ``b`` items over ``n`` events of ``word`` bytes, their boundaries'
+    lower bounds ``span`` events apart at most: each boundary read and
+    each pair of outputs written once, and the state's words the searches
+    need, the fewer of every boundary's own search (:func:`search_bytes`)
+    and one read of the span (a position, a depth and two prefixes an
+    event)."""
+    return b * (sides * word + 16) + min(sides * b * search_bytes(n, word),
+                                         (span + 1) * (word + 20))
 
 
-def search_rounds(n: int) -> int:
-    """Dependent loads of a 16-lane search of ``n`` words and its gather:
-    ceil(log17(n + 1)) rounds, then one."""
+def span_of(pos_s, x) -> int:
+    """The events between the lower bounds of the least and the greatest
+    of the boundaries ``x`` in ``pos_s``."""
+    import torch
+
+    ends = torch.searchsorted(pos_s, torch.stack([x.min(), x.max()]))
+    return int(ends[1] - ends[0])
+
+
+def search_loads(n: int, q: int) -> int:
+    """The fewest dependent loads in which the card can search ``q``
+    boundaries in ``n`` sorted words and gather each one's piece: a round
+    of a cooperative search cuts an interval lanes + 1 ways with a load a
+    lane, then one more load. A boundary's cut is the widest one resident
+    wave gives it: at most a block's 1,024 lanes, the card's resident
+    threads shared among the ``q`` boundaries, and never fewer than the
+    512 lanes of a tile's two edge searches (a block searches its tile's
+    least and greatest boundary, stages the span between and finishes in
+    shared memory). ceil(log_{lanes + 1}(n + 1)) rounds, then one."""
+    import torch
+
+    props = torch.cuda.get_device_properties(torch.cuda.current_device())
+    resident = props.multi_processor_count \
+        * props.max_threads_per_multi_processor
+    lanes = max(512, min(1024, resident // max(q, 1)))
     rounds = 0
-    while 17 ** rounds < n + 1:
+    while (lanes + 1) ** rounds < n + 1:
         rounds += 1
     return rounds + 1
 
@@ -525,8 +562,7 @@ class KernelCheck:
         pos_s = state[0]
         n, w, b = pos_s.numel(), pos_s.element_size(), lo.numel()
         x = torch.cat([lo, hi])
-        ends = torch.searchsorted(pos_s, torch.stack([x.min(), x.max()]))
-        nbytes = eval_bytes(n, w, b, int(ends[1] - ends[0]))
+        nbytes = eval_bytes(n, w, b, span_of(pos_s, x))
         kernel = lambda: kernels.eval_pair(*state, min_dep, lo, hi)  # noqa
         twin = lambda: sweep.eval_pair_reference(*state, min_dep, lo,  # noqa
                                                  hi)
@@ -539,7 +575,7 @@ class KernelCheck:
                           f"boundaries of {note or what}: {ss:.4f} ms")
         self.searches.append(("eval_pair", note or what,
                               nbytes / HBM_BYTES_PER_S * 1e3,
-                              search_rounds(n)))
+                              search_loads(n, 2 * b)))
 
     def round_notes(self, ns_per_load: float) -> None:
         """Each timed search shape's bound restated: the larger of its
@@ -615,7 +651,9 @@ class KernelCheck:
                                          min_dep, lo, hi)
         self.compare("eval_pair", got, want, what)
         self.boundaries_case(pos_s, depth, c_cov, c_sum, min_dep,
-                             torch.cat([lo, hi]), what)
+                             torch.cat([lo, hi]), what,
+                             note=f"{what}, lo and hi"
+                             if timed or pair_note else "")
         state = (pos_s, depth, c_cov, c_sum)
         if pair_note:
             self.pair_case(state, min_dep, lo, hi, what, pair_note)
@@ -730,18 +768,40 @@ class KernelCheck:
                      what + ", whole finalize_encoded")
 
     def boundaries_case(self, pos_s, depth, c_cov, c_sum, min_dep: int, x,
-                        what: str, timed: bool = False) -> None:
+                        what: str, timed: bool = False,
+                        note: str = "") -> None:
+        """eval_boundaries held array-equal to its twin at ``x``; with
+        ``timed`` also 50 launches of it, and timed for its JSON entry, or
+        with ``note`` for a note: its CUDA-event, device and host time per
+        call, and torch.searchsorted of the same boundaries."""
         from pandepth_tpu_torch.device import kernels, sweep
 
         args = (pos_s, depth, c_cov, c_sum, min_dep, x)
-        self.compare("eval_boundaries", kernels.eval_boundaries(*args),
-                     sweep.eval_boundaries_reference(*args), what)
+        want = sweep.eval_boundaries_reference(*args)
+        self.compare("eval_boundaries", kernels.eval_boundaries(*args), want,
+                     what)
+        if not (timed or note):
+            return
+        import torch
+
+        n, w, b = pos_s.numel(), pos_s.element_size(), x.numel()
+        nbytes = eval_bytes(n, w, b, span_of(pos_s, x), sides=1)
+        kernel = lambda: kernels.eval_boundaries(*args)  # noqa: E731
         if timed:
-            n, w, b = pos_s.numel(), pos_s.element_size(), x.numel()
-            self.time("eval_boundaries",
-                      lambda: kernels.eval_boundaries(*args),
-                      lambda: sweep.eval_boundaries_reference(*args),
-                      b * (w + 16 + search_bytes(n, w)))
+            self.repeat("eval_boundaries", kernel, want, what)
+        ms = self.time("eval_boundaries", kernel,
+                       lambda: sweep.eval_boundaries_reference(*args),
+                       nbytes, note)
+        self.device_note("eval_boundaries", kernel, note or what, ms)
+        ss = cuda_ms(lambda: torch.searchsorted(pos_s, x))
+        ss_dev = device_ms(lambda: torch.searchsorted(pos_s, x))[0]
+        self.notes.append(f"yardstick for eval_boundaries' search (not "
+                          f"library_ms): torch.searchsorted of the {b} "
+                          f"boundaries of {note or what}: {ss:.4f} ms, "
+                          f"device {ss_dev:.4f} ms")
+        self.searches.append(("eval_boundaries", note or what,
+                              nbytes / HBM_BYTES_PER_S * 1e3,
+                              search_loads(n, b)))
 
 
 def sweep_edge_cases(check: KernelCheck, dev) -> None:
@@ -761,9 +821,9 @@ def sweep_edge_cases(check: KernelCheck, dev) -> None:
     lib = kernels.library()
     tiles = (lib.pdt_sweep_scan_tile(), lib.pdt_decode_enc_tile(),
              lib.pdt_extract_events_tile(), lib.pdt_bucket_tile(),
-             lib.pdt_eval_pair_win())
+             lib.pdt_eval_pair_win(), lib.pdt_carry_run())
     want = (synth.SWEEP_TILE, synth.DEC_TILE, synth.EXTRACT_TILE,
-            synth.BUCKET_TILE, synth.SEARCH_WIN)
+            synth.BUCKET_TILE, synth.SEARCH_WIN, synth.CARRY_RUN)
     if tiles != want:
         fail("kernels", f"the library's tiles {tiles} are not synth's "
                         f"{want}: the edge cases miss the tile boundaries")
@@ -813,15 +873,19 @@ def sweep_edge_cases(check: KernelCheck, dev) -> None:
 
 
 def search_edge_cases(check: KernelCheck, dev) -> None:
-    """eval_pair on the edges of its cooperative search and dense tiles
-    (``synth.search_edge_cases``, the cases tests/test_torch_sweep.py
-    holds the twin to JAX on): 1, 2, 15, 16, 17, 255, 256 and 257 events
+    """eval_pair on the edges of its cooperative search and dense tiles,
+    and eval_boundaries on each case's lo and hi concatenated
+    (``synth.search_edge_cases``, the cases tests/test_torch_sweep.py and
+    tests/test_torch_step.py hold the twins to JAX on): 1, 2, 15, 16, 17,
+    255, 256 and 257 events
     and a few tiles' worth on every tier, boundaries before, on, beside
     and past the events, zero-length and reversed segments, a run of
     equal positions longer than a 16-way round's stride, and 40,000
     sorted segments whose tiles span more and fewer events than the
     staging window, then shuffled; after the library's stable sort and
-    sweep_scan."""
+    sweep_scan. eval_boundaries also on the concatenation less its last
+    boundary (an odd count: a lo half one longer than its hi half), sorted
+    and shuffled."""
     import numpy as np
     import torch
 
@@ -829,6 +893,7 @@ def search_edge_cases(check: KernelCheck, dev) -> None:
     from pandepth_tpu_torch.device import kernels, sweep
     from pandepth_tpu_torch.device.convert import positions_to_words
 
+    rng = np.random.RandomState(16)
     for name, pos, delta, pos_dt, min_dep, lo, hi in \
             synth.search_edge_cases(seed=6):
         p = torch.from_numpy(positions_to_words(pos, pos_dt)).to(dev)
@@ -840,6 +905,51 @@ def search_edge_cases(check: KernelCheck, dev) -> None:
         check.compare("eval_pair", kernels.eval_pair(*state, min_dep, *q),
                       sweep.eval_pair_reference(*state, min_dep, *q),
                       f"search edge: {name}, min_dep={min_dep}")
+        x = torch.cat(q)
+        shuffle = torch.from_numpy(rng.permutation(x.numel())).to(dev)
+        for order, xs in (("lo and hi", x), ("lo and hi but the last", x[:-1]),
+                          ("sorted", torch.sort(x).values),
+                          ("shuffled", x[shuffle])):
+            check.boundaries_case(*state, min_dep, xs,
+                                  f"search edge: {name}, min_dep={min_dep}, "
+                                  f"{order}")
+
+
+def carry_edge_cases(check: KernelCheck, dev) -> None:
+    """shard_carry on the edges of its runs and rows
+    (``synth.carry_edge_blocks``, the cases tests/test_torch_sharding.py
+    holds the twin to JAX on): row payloads of 1, a run - 1, a run, a run
+    + 1 and a few runs of the kernel's over 1, 8 and 37 rows and
+    more rows than a grid's y dimension takes, on the int32 and the uint32
+    tier, an all-zero row, carries past 2^31 at a row edge, rows on
+    earlier devices; the totals and the whole block against the twin's.
+    Each block also as a view 1, 2 or 3 words (in turn) into a larger
+    buffer, so that its deltas start off a 16-byte vector."""
+    import torch
+
+    from pandepth_tpu_torch import synth
+    from pandepth_tpu_torch.device import kernels
+    from pandepth_tpu_torch.device.convert import positions_to_words
+    from pandepth_tpu_torch.sharding import steps
+
+    for k, (name, pos, delta, pos_dt, bounds, left) in \
+            enumerate(synth.carry_edge_blocks(seed=8)):
+        rp = torch.from_numpy(positions_to_words(pos, pos_dt)).to(dev)
+        rd = torch.from_numpy(delta).to(dev)
+        off = 1 + k % 3
+        blocks = [(rp.clone(), rd.clone(), "")]
+        views = []
+        for t in (rp, rd):
+            flat = torch.zeros(t.numel() + off, dtype=t.dtype, device=dev)
+            views.append(flat[off:].view(t.shape))
+            views[-1].copy_(t)
+        blocks.append((*views, f", a view {off} words into its buffer"))
+        b, lt = (torch.from_numpy(a).to(dev) for a in (bounds, left))
+        want = (steps.shard_carry_reference(rp, rd, b, lt), rp, rd)
+        for kp, kd, at in blocks:
+            check.compare("shard_carry", (kernels.shard_carry(kp, kd, b, lt),
+                                          kp, kd), want,
+                          f"carry edge: {name}{at}")
 
 
 def enc_edge_cases(check: KernelCheck, dev) -> None:
@@ -1004,12 +1114,26 @@ def shard_case(check: KernelCheck, eng, lo, hi, what: str,
         clipped = sum(int((np.clip(hi, b[r], b[r + 1])
                            != np.clip(lo, b[r], b[r + 1])).sum())
                       for r in range(rows_n))
-        check.time("shard_carry",
-                   lambda: kernels.shard_carry(kp, kd, blk.bounds, left),
+        carry = lambda: kernels.shard_carry(kp, kd, blk.bounds,  # noqa
+                                            left)
+
+        def poisoned():
+            kp[:, 0], kd[:, 0] = -5, 77   # slot 0 the kernel must write
+            return carry(), kp[:, 0].clone(), kd[:, 0].clone()
+
+        check.repeat("shard_carry", poisoned, (want, rp[:, 0], rd[:, 0]),
+                     what)
+        check.time("shard_carry", carry,
                    lambda: steps.shard_carry_reference(rp, rd, blk.bounds,
                                                        left),
                    rows_n * width * 4 + 8 * left.numel()
                    + rows_n * (8 + 8 + 4 + word))
+        check.device_note("shard_carry", carry, what)
+        row_sums = lambda: kd[:, 1:].sum(1, dtype=torch.int64)  # noqa
+        check.notes.append(f"yardstick for shard_carry (not library_ms): "
+                           f"the sum of each row's deltas past slot 0 "
+                           f"(torch.sum), {what}: {cuda_ms(row_sums):.4f} "
+                           f"ms, device {device_ms(row_sums)[0]:.4f} ms")
         kernel = lambda: kernels.eval_pair_rows(*args)  # noqa: E731
         want = steps.eval_pair_rows_reference(*args)
         check.repeat("eval_pair_rows", kernel, want, what)
@@ -1020,7 +1144,7 @@ def shard_case(check: KernelCheck, eng, lo, hi, what: str,
         check.device_note("eval_pair_rows", kernel, what)
         check.searches.append(("eval_pair_rows", what,
                                nbytes / HBM_BYTES_PER_S * 1e3,
-                               search_rounds(width)))
+                               search_loads(width, 2 * clipped)))
         check.notes.append(f"eval_pair_rows: {clipped} of "
                            f"{lo.shape[0] * rows_n} (segment, row) clips "
                            f"non-empty, {what}")
@@ -1413,31 +1537,43 @@ class FirstBatch:
         self.flags_mask, self.min_mapq = cfg.flags, cfg.min_mapq
 
 
+CHASE_LINKS = (64, 4096)   # the pointer chase's two walks
+
+
 def load_latency_note(check: KernelCheck, dev) -> float:
     """The card's time per dependent load, for the latency-bound kernels'
-    (K3, K5, eval_pair_rows) dependent-load bound: eval_boundaries with
-    one query on sorted states of 2 and 2^24 int64 events, each query's
-    binary search 2 and 25 probes deep, one probe a dependent load; the
-    device time's slope per probe (the same query every call, so its
-    probes hit the L2 cache: the least a dependent load takes). Returns
-    the nanoseconds a dependent load."""
+    (K3, K5, eval_pair_rows) dependent-load bound: kernels.chase, one
+    thread following CHASE_LINKS links of a seeded random cycle of 2^20
+    int64 links (8 MB: after the warm-up call every link is in the L2
+    cache, so a link takes the least a dependent load takes), each load's
+    address the value of the one before; the device time's slope per
+    link. The end of each walk is held to the host's walk of the same
+    cycle. Returns the nanoseconds a dependent load."""
+    import numpy as np
     import torch
 
     from pandepth_tpu_torch.device import kernels
 
-    times = {}
-    for n in (2, 1 << 24):
-        pos = torch.arange(n, dtype=torch.int64, device=dev) * 97
-        depth = torch.zeros(n, dtype=torch.int32, device=dev)
-        zero = torch.zeros(n, dtype=torch.int64, device=dev)
-        x = torch.tensor([97 * (n // 3) + 5], dtype=torch.int64, device=dev)
-        times[n] = (device_ms(lambda: kernels.eval_boundaries(
-            pos, depth, zero, zero, 1, x), iters=50)[0], n.bit_length())
-    (t_lo, p_lo), (t_hi, p_hi) = times[2], times[1 << 24]
-    ns = (t_hi - t_lo) / (p_hi - p_lo) * 1e6
-    check.notes.append(f"dependent-load latency: one eval_boundaries query "
-                       f"{t_lo:.4f} ms on 2 events ({p_lo} probes), "
-                       f"{t_hi:.4f} ms on 2^24 ({p_hi} probes): "
+    n = 1 << 20
+    perm = np.random.RandomState(17).permutation(n)
+    nxt = np.empty(n, np.int64)
+    nxt[perm] = np.roll(perm, -1)
+    chain = torch.from_numpy(nxt).to(dev)
+    times = []
+    for k in CHASE_LINKS:
+        i = 0
+        for _ in range(k):
+            i = int(nxt[i])
+        if int(kernels.chase(chain, k)[0]) != i:
+            fail("kernels", f"chase: the walk of {k} links does not end "
+                            f"where the host's does")
+        times.append(device_ms(lambda: kernels.chase(chain, k),
+                               iters=20)[0])
+    (k0, k1), (t0, t1) = CHASE_LINKS, times
+    ns = (t1 - t0) / (k1 - k0) * 1e6
+    check.notes.append(f"dependent-load latency: a one-thread pointer chase "
+                       f"through {n} int64 links in L2 (kernels.chase), "
+                       f"{t0:.4f} ms for {k0} links, {t1:.4f} ms for {k1}: "
                        f"{ns:.1f} ns a dependent load")
     return ns
 
@@ -1788,6 +1924,7 @@ def main() -> int:
         extract_edge_cases(check, dev)
         enc_edge_cases(check, dev)
         shard_edge_cases(check, dev)
+        carry_edge_cases(check, dev)
         many_rows_case(check, dev)
         bucket_edge_cases(check, dev)
         states, h2d = main_path_states(check, bam, bed, lst, uns, dev)

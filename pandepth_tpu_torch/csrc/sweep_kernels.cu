@@ -29,11 +29,7 @@ constexpr int TIER_I32 = 0;
 constexpr int TIER_U32 = 1;
 constexpr int TIER_I64 = 2;
 
-constexpr int THREADS = 256;            // threads per block in the scans
-constexpr int ITEMS = 8;                // consecutive elements per thread
-constexpr int TILE = THREADS * ITEMS;   // elements per scan block
-constexpr int TOTALS_THREADS = 1024;    // shard_carry's one-block carry
-constexpr int POINT_THREADS = 256;      // pack_events / eval_boundaries
+constexpr int POINT_THREADS = 256;      // pack_events
 constexpr int32_t WRAP18_MASK = 0x3FFFF;
 
 typedef unsigned long long u64;
@@ -161,6 +157,18 @@ constexpr int LOOKBACK_SLEEP_NS = 100;
 // the acquire half of the status protocol, after a relaxed load
 __device__ __forceinline__ void fence_acquire() {
     asm volatile("fence.acq_rel.gpu;" ::: "memory");
+}
+
+// *p += v at GPU scope with acquire and release semantics; returns the
+// old value
+__device__ __forceinline__ unsigned atom_add_acq_rel(unsigned* p,
+                                                     unsigned v) {
+    unsigned old;
+    asm volatile("atom.acq_rel.gpu.global.add.u32 %0, [%1], %2;"
+                 : "=r"(old)
+                 : "l"(p), "r"(v)
+                 : "memory");
+    return old;
 }
 
 // Called by the 32 lanes of one warp: on every lane, the sum of the
@@ -441,37 +449,10 @@ sweep_scan_kernel(const P* __restrict__ pos,
 // Q(x), the integrals of the covered indicator and of covered depth over
 // [0, x), from r = the first index with pos[r] >= x (lower bound) and the
 // piece before it: c_cov/c_sum up to piece r - 2 and the part of piece
-// r - 1 below x. q_eval searches with one thread (K5); K3 and
-// eval_pair_rows search with a group of lanes (group_lower_bound) and
-// gather the four words in one round (group_q), or K3 searches events
-// staged in shared memory (window_q).
-
-template <typename P>
-__device__ __forceinline__ void q_eval(const P* __restrict__ pos,
-                                       const int32_t* __restrict__ depth,
-                                       const int64_t* __restrict__ c_cov,
-                                       const int64_t* __restrict__ c_sum,
-                                       int64_t e, int32_t min_dep, P x,
-                                       u64* q_cov, u64* q_sum) {
-    int64_t lo = 0, hi = e;  // r = first index with pos[r] >= x
-    while (lo < hi) {
-        const int64_t mid = (lo + hi) >> 1;
-        if (pos[mid] < x) lo = mid + 1;
-        else hi = mid;
-    }
-    const int64_t r = lo;
-    u64 cov = r >= 2 ? (u64)c_cov[r - 2] : 0;
-    u64 sum = r >= 2 ? (u64)c_sum[r - 2] : 0;
-    if (r >= 1) {
-        const int32_t dep = depth[r - 1];
-        const u64 part = dep >= min_dep
-                             ? (u64)((int64_t)x - (int64_t)pos[r - 1]) : 0;
-        cov += part;
-        sum += part * (u64)(int64_t)dep;
-    }
-    *q_cov = cov;
-    *q_sum = sum;
-}
+// r - 1 below x. K3, K5 and eval_pair_rows search with a group of lanes
+// (group_lower_bound) and gather the four words in one round (group_q),
+// or K3 and K5 search events staged in shared memory (window_q). All of
+// the arithmetic is u64, which wraps as the JAX int64 sums do.
 
 // The lower bound of x in pos[lo, hi) (hi if every word is below x),
 // searched by a group of g lanes (g a power of two up to 32; the group is
@@ -508,8 +489,7 @@ __device__ __forceinline__ int64_t group_lower_bound(const P* __restrict__ pos,
 // Q(x) from a group's lower bound r: the four words (pos[r-1],
 // depth[r-1], c_cov[r-2], c_sum[r-2]) loaded in one round, word i by the
 // group's lane i mod g, then shared through the group. Every lane of the
-// warp calls it and every lane of a group gets its Q. u64 arithmetic as
-// q_eval's, wraps included.
+// warp calls it and every lane of a group gets its Q.
 template <typename P>
 __device__ __forceinline__ void group_q(const P* __restrict__ pos,
                                         const int32_t* __restrict__ depth,
@@ -551,27 +531,39 @@ __device__ __forceinline__ int group_size(int64_t n, int lanes) {
 }
 
 // ---------------------------------------------------------------------
-// K3 eval_pair — replaces pandepth_tpu/device/sweep.py:eval_pair.
-// Bound on the H100: the dependent loads of the search where the queries
-// are few (the chr path's 300 segments over 15.2M events), the bytes
-// where they are many (a -w 150 grid's 1M-window chunks; the exome's
-// 200,000 regions). A thread a segment running its lo and then its hi
-// binary search would chain 2 x (log2 E + 1) loads. Instead a block
-// takes a tile of EP_TILE_MIN or more consecutive segments (the wrapper
-// sizes the grid to one resident wave, or to EP_TILE_MIN segments a
-// block where that is fewer blocks), and decides per tile at run time:
-//   dense  (more than EP_TILE_MIN segments): find the lower bounds rmin
-//          and rmax of the tile's least and greatest boundary; every
-//          boundary of the tile has its r in [rmin, rmax]. If rmax - rmin
-//          <= EP_WIN, stage pos[rmin, rmax) in shared memory and finish
-//          each search there (staged_eval). If not, do the same for each
-//          sub-tile of EP_THREADS segments, inside [rmin, rmax].
-//   sparse (a small tile, or a sub-tile whose span does not fit): lane
-//          groups, g lanes a boundary (16 for up to EP_TILE_MIN segments,
+// K3 eval_pair — replaces pandepth_tpu/device/sweep.py:eval_pair — and
+// K5 eval_boundaries — replaces pandepth_tpu/device/sweep.py:
+// eval_boundaries. K5 is the one-sided half of K3, so one kernel body
+// serves both (search_eval_kernel). Its items are pairs of boundaries,
+// lo[s] and hi[s]: K3's segments, of which it writes Q(hi) - Q(lo); and
+// for K5 the first and the second half of its n boundaries x, lo = x[0,
+// h) and hi = x[h, n) (h = ceil(n / 2)), of which it writes both Q, at s
+// and at h + s (PAIRED false). K5's callers pass the lo and then the hi
+// boundaries of segments (coverage_step), so its items are K3's segments
+// and its tiles span what K3's do; a tile of consecutive boundaries would
+// hold the last lo and the first hi, whose span is the whole axis. Bound
+// on the H100: the dependent loads of the search where the queries are
+// few (the chr path's 300 segments over 15.2M events; the step path's
+// 600 boundaries over 2^21), the bytes where they are many (a -w 150
+// grid's 1M-window chunks; the exome's 200,000 regions). A thread a
+// boundary running a binary search would chain log2 E + 1 loads.
+// Instead a block takes a tile of EP_TILE_MIN or more consecutive items
+// (the launcher sizes the grid to one resident wave, or to EP_TILE_MIN
+// items a block where that is fewer blocks), and decides per tile at run
+// time:
+//   dense  (more than EP_TILE_MIN items): find the lower bounds rmin and
+//          rmax of the tile's least and greatest boundary; every boundary
+//          of the tile has its r in [rmin, rmax]. If rmax - rmin <=
+//          EP_WIN, stage pos[rmin, rmax) in shared memory and finish each
+//          search there, a thread's lo and hi at once (staged_eval). If
+//          not, do the same for each sub-tile of EP_THREADS items, inside
+//          [rmin, rmax].
+//   sparse (a small tile, or a sub-tile whose span does not fit): a pair
+//          of g-lane groups an item (16 lanes for up to EP_TILE_MIN items,
 //          fewer for more), inside the span when it is known
 //          (sparse_eval).
 // At 15.2M events a 16-lane search takes ceil(log17 E) = 6 rounds, plus
-// the gather: 7 dependent loads for a segment, against 50. Registers are
+// the gather: 7 dependent loads for a boundary, against 25. Registers are
 // capped for EP_MIN_BLOCKS blocks an SM: a larger wave of smaller dense
 // tiles was faster on a 1M-window chunk of a -w 150 grid (0.0318 against
 // 0.0353 ms, H100 80GB HBM3 at 700 W, tools/kernel_ab.py); four segments
@@ -579,9 +571,12 @@ __device__ __forceinline__ int group_size(int64_t n, int lanes) {
 // segments, one block each, took 6x the wave's time on the chr path's
 // 300 segments and 1.28x on the -w 150 chunk; tiles of b / 1024
 // segments, 8 to 256, 1.28x on the chunk (same card, tools/kernel_ab.py).
-constexpr int EP_THREADS = 256;        // threads per block, K3 and rows
+// A K5 tile of consecutive boundaries, one search a thread, took 0.0200
+// ms on the exome's 400,000 boundaries (lo, then hi) against K3's 0.0093
+// on their 200,000 segments (same card, tools/kernel_ab.py).
+constexpr int EP_THREADS = 256;        // threads per block, K3, K5, rows
 constexpr int EP_WARPS = EP_THREADS / 32;
-constexpr int EP_TILE_MIN = 8;         // segments: 16 lanes a boundary
+constexpr int EP_TILE_MIN = 8;         // items: 16 lanes a boundary
 constexpr int EP_WIN = 3072;           // event words a dense tile stages
 constexpr int EP_MIN_BLOCKS = 8;       // blocks an SM (registers capped)
 
@@ -654,15 +649,37 @@ __device__ __forceinline__ void window_q(const P* win, int cnt, int64_t a,
     *q_sum = sum;
 }
 
-// The segments [s0, s1) of a block in shared memory, if the lower bounds
-// of their boundaries, searched in pos[*a, *z), span at most EP_WIN
-// events: the least and greatest boundary by a block reduction (min and
-// max, so any query order is right), their lower bounds (block_span,
-// into *a and *z whether they fit or not), pos[*a, *z) staged with
-// coalesced loads, then each boundary's window_q; the gathers of sorted
-// queries fall on neighbouring rows. Returns whether they fitted. Every
-// thread calls it.
-template <typename P>
+// Item s's result from the Q of its lo (ca, sa) and of its hi (cb, sb):
+// K3's Q(hi) - Q(lo) into out0[s], out1[s]; K5's Q(lo) there and, where
+// the item has a hi (s < nhi), Q(hi) into out0[n + s], out1[n + s].
+template <bool PAIRED>
+__device__ __forceinline__ void put_item(int64_t s, int64_t n, int64_t nhi,
+                                         u64 ca, u64 sa, u64 cb, u64 sb,
+                                         int64_t* __restrict__ out0,
+                                         int64_t* __restrict__ out1) {
+    if constexpr (PAIRED) {
+        out0[s] = (int64_t)(cb - ca);
+        out1[s] = (int64_t)(sb - sa);
+    } else {
+        out0[s] = (int64_t)ca;
+        out1[s] = (int64_t)sa;
+        if (s < nhi) {   // K5's odd last boundary has no hi
+            out0[n + s] = (int64_t)cb;
+            out1[n + s] = (int64_t)sb;
+        }
+    }
+}
+
+// The items [s0, s1) of a block in shared memory, if the lower bounds of
+// their boundaries, searched in pos[*a, *z), span at most EP_WIN events:
+// the least and greatest boundary by a block reduction (min and max, so
+// any query order is right), their lower bounds (block_span, into *a and
+// *z whether they fit or not), pos[*a, *z) staged with coalesced loads,
+// then each boundary's window_q, an item's two at once; the gathers of
+// sorted queries fall on neighbouring rows. Items from nhi on have no hi
+// (K5's odd last boundary). Returns whether they fitted. Every thread
+// calls it.
+template <typename P, bool PAIRED>
 __device__ __forceinline__ bool staged_eval(const P* __restrict__ pos,
                                             const int32_t* __restrict__ depth,
                                             const int64_t* __restrict__ c_cov,
@@ -670,17 +687,18 @@ __device__ __forceinline__ bool staged_eval(const P* __restrict__ pos,
                                             int32_t min_dep,
                                             const P* __restrict__ lo,
                                             const P* __restrict__ hi,
+                                            int64_t n, int64_t nhi,
                                             int64_t s0, int64_t s1, P* win,
                                             P (*red)[EP_WARPS],
                                             int64_t* span, int64_t* a,
                                             int64_t* z,
-                                            int64_t* __restrict__ cover,
-                                            int64_t* __restrict__ dsum) {
+                                            int64_t* __restrict__ out0,
+                                            int64_t* __restrict__ out1) {
     const int tid = threadIdx.x;
-    P mn = hi[s0], mx = mn;
+    P mn = lo[s0], mx = mn;
 #pragma unroll 4
     for (int64_t s = s0 + tid; s < s1; s += EP_THREADS) {
-        const P x0 = lo[s], x1 = hi[s];
+        const P x0 = lo[s], x1 = PAIRED || s < nhi ? hi[s] : x0;
         mn = x0 < mn ? x0 : mn;
         mn = x1 < mn ? x1 : mn;
         mx = x0 > mx ? x0 : mx;
@@ -693,22 +711,21 @@ __device__ __forceinline__ bool staged_eval(const P* __restrict__ pos,
     for (int j = tid; j < cnt; j += EP_THREADS) win[j] = pos[*a + j];
     __syncthreads();
     for (int64_t s = s0 + tid; s < s1; s += EP_THREADS) {
-        u64 cl, sl, ch, sh;
+        u64 ca, sa, cb, sb;
         window_q<P>(win, cnt, *a, pos, depth, c_cov, c_sum, min_dep, lo[s],
-                    &cl, &sl);
-        window_q<P>(win, cnt, *a, pos, depth, c_cov, c_sum, min_dep, hi[s],
-                    &ch, &sh);
-        cover[s] = (int64_t)(ch - cl);
-        dsum[s] = (int64_t)(sh - sl);
+                    &ca, &sa);
+        window_q<P>(win, cnt, *a, pos, depth, c_cov, c_sum, min_dep,
+                    PAIRED || s < nhi ? hi[s] : lo[s], &cb, &sb);
+        put_item<PAIRED>(s, n, nhi, ca, sa, cb, sb, out0, out1);
     }
     return true;
 }
 
-// The m <= EP_THREADS segments from s0 with lane groups, their lower
-// bounds searched in pos[a, z): a pair of g-lane groups a segment, one
-// on lo and one on hi, block-uniform rounds; then the gather round, and
-// the hi group's Q goes to the lo group's first lane by one shuffle.
-template <typename P>
+// The m <= EP_THREADS items from s0 with lane groups, their lower bounds
+// searched in pos[a, z): a pair of g-lane groups an item, one on lo and
+// one on hi, block-uniform rounds; then the gather round, and the hi
+// group's Q goes to the lo group's first lane by one shuffle.
+template <typename P, bool PAIRED>
 __device__ __forceinline__ void sparse_eval(const P* __restrict__ pos,
                                             const int32_t* __restrict__ depth,
                                             const int64_t* __restrict__ c_cov,
@@ -716,10 +733,11 @@ __device__ __forceinline__ void sparse_eval(const P* __restrict__ pos,
                                             int32_t min_dep,
                                             const P* __restrict__ lo,
                                             const P* __restrict__ hi,
+                                            int64_t n, int64_t nhi,
                                             int64_t s0, int m, int64_t a,
                                             int64_t z,
-                                            int64_t* __restrict__ cover,
-                                            int64_t* __restrict__ dsum) {
+                                            int64_t* __restrict__ out0,
+                                            int64_t* __restrict__ out1) {
     const int tid = threadIdx.x, lane = tid & 31;
     const int g = group_size(2 * m, EP_THREADS);
     const int pairs = EP_THREADS / (2 * g);
@@ -727,7 +745,7 @@ __device__ __forceinline__ void sparse_eval(const P* __restrict__ pos,
     const int gl = tid & (g - 1), first = lane & ~(g - 1);
     for (int j0 = 0; j0 < m; j0 += pairs) {
         const int64_t s = s0 + j0 + pair;
-        const bool has = j0 + pair < m;
+        const bool has = j0 + pair < m && (PAIRED || side == 0 || s < nhi);
         const P x = has ? (side ? hi[s] : lo[s]) : P(0);
         const int64_t r = group_lower_bound<P>(pos, has ? a : 0, has ? z : 0,
                                                x, g, gl, first);
@@ -736,67 +754,47 @@ __device__ __forceinline__ void sparse_eval(const P* __restrict__ pos,
                    &cov, &sum);
         const u64 cov_hi = __shfl_down_sync(0xffffffffu, cov, g);
         const u64 sum_hi = __shfl_down_sync(0xffffffffu, sum, g);
-        if (has && side == 0 && gl == 0) {
-            cover[s] = (int64_t)(cov_hi - cov);
-            dsum[s] = (int64_t)(sum_hi - sum);
-        }
+        if (has && side == 0 && gl == 0)
+            put_item<PAIRED>(s, n, nhi, cov, sum, cov_hi, sum_hi, out0, out1);
     }
 }
 
-template <typename P>
+// n items (K3: segments lo/hi, nhi = n; K5: lo = x, hi = x + n, nhi the
+// boundaries past the first n).
+template <typename P, bool PAIRED>
 __global__ void __launch_bounds__(EP_THREADS, EP_MIN_BLOCKS)
-eval_pair_kernel(const P* __restrict__ pos, const int32_t* __restrict__ depth,
-                 const int64_t* __restrict__ c_cov,
-                 const int64_t* __restrict__ c_sum, int64_t e,
-                 int32_t min_dep, const P* __restrict__ lo,
-                 const P* __restrict__ hi, int64_t b, int64_t tile,
-                 int64_t* __restrict__ cover, int64_t* __restrict__ dsum) {
+search_eval_kernel(const P* __restrict__ pos,
+                   const int32_t* __restrict__ depth,
+                   const int64_t* __restrict__ c_cov,
+                   const int64_t* __restrict__ c_sum, int64_t e,
+                   int32_t min_dep, const P* __restrict__ lo,
+                   const P* __restrict__ hi, int64_t n, int64_t nhi,
+                   int64_t tile, int64_t* __restrict__ out0,
+                   int64_t* __restrict__ out1) {
     __shared__ int64_t win_words[EP_WIN];
     __shared__ P red[2][EP_WARPS];
     __shared__ int64_t span[2];
     P* win = reinterpret_cast<P*>(win_words);
     const int64_t s0 = (int64_t)blockIdx.x * tile;
-    const int64_t s1 = s0 + tile < b ? s0 + tile : b;
+    const int64_t s1 = s0 + tile < n ? s0 + tile : n;
     int64_t a = 0, z = e;   // where the tile's lower bounds lie
     if (s1 - s0 > EP_TILE_MIN
-        && staged_eval<P>(pos, depth, c_cov, c_sum, min_dep, lo, hi, s0, s1,
-                          win, red, span, &a, &z, cover, dsum))
+        && staged_eval<P, PAIRED>(pos, depth, c_cov, c_sum, min_dep, lo, hi,
+                                  n, nhi, s0, s1, win, red, span, &a, &z,
+                                  out0, out1))
         return;
-    // by sub-tiles of EP_THREADS segments inside the tile's span
+    // by sub-tiles of EP_THREADS items inside the tile's span
     for (int64_t base = s0; base < s1; base += EP_THREADS) {
         const int m = (int)(s1 - base < EP_THREADS ? s1 - base : EP_THREADS);
         int64_t sa = a, sz = z;
         if (s1 - s0 > EP_THREADS && m > EP_TILE_MIN
-            && staged_eval<P>(pos, depth, c_cov, c_sum, min_dep, lo, hi,
-                              base, base + m, win, red, span, &sa, &sz,
-                              cover, dsum))
+            && staged_eval<P, PAIRED>(pos, depth, c_cov, c_sum, min_dep, lo,
+                                      hi, n, nhi, base, base + m, win, red,
+                                      span, &sa, &sz, out0, out1))
             continue;
-        sparse_eval<P>(pos, depth, c_cov, c_sum, min_dep, lo, hi, base, m, sa,
-                       sz, cover, dsum);
+        sparse_eval<P, PAIRED>(pos, depth, c_cov, c_sum, min_dep, lo, hi, n,
+                               nhi, base, m, sa, sz, out0, out1);
     }
-}
-
-// ---------------------------------------------------------------------
-// K5 eval_boundaries — replaces pandepth_tpu/device/sweep.py:
-// eval_boundaries. The one-sided half of K3: (Q_cov(x), Q_sum(x)) per
-// boundary, through the same q_eval search and integral. Bound by the
-// same dependent-load chain as K3; one thread per boundary.
-
-template <typename P>
-__global__ void eval_boundaries_kernel(const P* __restrict__ pos,
-                                       const int32_t* __restrict__ depth,
-                                       const int64_t* __restrict__ c_cov,
-                                       const int64_t* __restrict__ c_sum,
-                                       int64_t e, int32_t min_dep,
-                                       const P* __restrict__ x, int64_t b,
-                                       int64_t* __restrict__ q_cov,
-                                       int64_t* __restrict__ q_sum) {
-    const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-    if (i >= b) return;
-    u64 cov, sum;
-    q_eval<P>(pos, depth, c_cov, c_sum, e, min_dep, x[i], &cov, &sum);
-    q_cov[i] = (int64_t)cov;
-    q_sum[i] = (int64_t)sum;
 }
 
 // ---------------------------------------------------------------------
@@ -1268,68 +1266,130 @@ int decode_enc_tier(int tier, int nblocks, const void* const* codes,
 // genome axis is cut into ranges, one per row of a (rows, width) event
 // block (slot 0 of each row reserved for the carry event, the rest the
 // range's events, sentinel-padded with delta 0). Each row is sorted (the
-// library sort) and scanned (K2, row by row); these two kernels are the
-// rest of it.
+// library sort) and scanned (K2, row by row); shard_carry_kernel and
+// eval_pair_rows_kernel are the rest of it.
 //
 // shard_carry: the depth carried into each range from the ranges to its
 // left, injected as the row's first event (JAX: all_gather of the
 // per-device delta totals, an exclusive prefix, concatenated in front).
 // Bound on the H100: memory. It reads the int32 delta block once (4 B
-// per slot) and writes three words per row. Pass 1 is a (tiles, rows)
-// grid of block sums of each row's deltas past slot 0; pass 2 one block
-// that sums each row's partials in row order, keeps the running int64
-// prefix from the totals of the rows held on earlier devices, and
-// writes the row's total, its carry cast to int32 (wrapping as JAX's
-// astype(int32)) into the delta row's slot 0, and bounds[r] into the
-// position row's slot 0. Slot 0 sorts first among equal positions under
-// the stable sort, as JAX's concatenation [carry, row] does.
+// per slot) and writes three words per row. One launch, after one memset
+// of its ticket and row sums, of one resident wave of blocks:
+//   1. the block, flattened (rows x width slots), is cut into runs of
+//      CARRY_RUN slots, and each block takes the same number of
+//      consecutive runs; for each row its slots meet (past the row's slot
+//      0) it sums them in 16-byte loads, CARRY_LOADS a thread in flight,
+//      from the aligned address at or below the first (a row starts at
+//      slot r * width, an odd one in the engine's blocks), the words
+//      outside the slots masked in the first and the last vector (an
+//      aligned 16-byte vector never crosses a page, so those are mapped),
+//      reduces the sums in u64 (warp shuffles, then one shared word a
+//      warp) and adds the block's sum to the row's with an atomic in L2.
+//   2. each block takes a ticket, an atomic with release semantics; the
+//      first warp of the last block to arrive (acquire) does the carries:
+//      one exclusive scan of `left` (the totals of the rows on earlier
+//      devices) and then the row sums (read past L1, ld.cg), whose value
+//      at row r is its carry, into each row's total, its carry cast to
+//      int32 (wrapping as JAX's astype(int32)) in the delta row's slot 0,
+//      and bounds[r] in the position row's slot 0.
+// Slot 0 sorts first among equal positions under the stable sort, as
+// JAX's concatenation [carry, row] does. A block pays its ticket once.
+// Measured on an H100 80GB HBM3 at 700 W (tools/kernel_ab.py, 8 rows of
+// 2^21 + 1 slots, the kernel's device ms): a block a run, each writing
+// its partial for the last block to scan, 0.0309 with runs of 8,192
+// slots (2,056 blocks), 0.0434 with 2,048; a block a run adding to its
+// row's sum, 0.0295, 0.0347 and 0.0475 with runs of 4,096, 2,048 and
+// 1,024; one wave of equal shares, 0.0258 (4 blocks an SM, 8 loads in
+// flight; 8 blocks and 4 loads 0.0274), of which 0.0238 is the stream
+// alone. The run is also pandepth_tpu_torch/synth.py's CARRY_RUN, which
+// chip_smoke.py holds to the library's.
+constexpr int CARRY_THREADS = 256;
+constexpr int CARRY_MIN_BLOCKS = 4;   // blocks an SM: the wave
+constexpr int CARRY_LOADS = 8;        // 16-byte loads a thread in flight
+constexpr int CARRY_RUN = 1024;       // slots: the unit of a block's share
 
-__global__ void row_partials_kernel(const int32_t* __restrict__ delta,
-                                    int64_t width, int64_t ntiles,
-                                    u64* __restrict__ part) {
-    __shared__ u64 warp_tot[32];
-    const int64_t r = blockIdx.y;
-    const int32_t* row = delta + r * width + 1;
-    const int64_t n = width - 1;
-    const int64_t base = (int64_t)blockIdx.x * TILE;
-    u64 s = 0;
-#pragma unroll
-    for (int k = 0; k < ITEMS; ++k) {
-        const int64_t i = base + (int64_t)k * THREADS + threadIdx.x;
-        if (i < n) s += (u64)(int64_t)row[i];
-    }
-    u64 block_total;
-    block_exclusive_scan<u64>(s, warp_tot, &block_total);
-    if (threadIdx.x == 0) part[r * ntiles + blockIdx.x] = block_total;
+__device__ __forceinline__ int64_t sum4(int4 v) {
+    return (int64_t)v.x + (int64_t)v.y + (int64_t)v.z + (int64_t)v.w;
 }
 
 template <typename P>
-__global__ void row_carry_kernel(const u64* __restrict__ part,
-                                 int64_t ntiles, int64_t rows,
-                                 int64_t width,
-                                 const int64_t* __restrict__ bounds,
-                                 const int64_t* __restrict__ left,
-                                 int64_t n_left, P* __restrict__ pos,
-                                 int32_t* __restrict__ delta,
-                                 int64_t* __restrict__ totals) {
+__global__ void __launch_bounds__(CARRY_THREADS, CARRY_MIN_BLOCKS)
+shard_carry_kernel(int32_t* delta, int64_t width, int64_t rows,
+                   int64_t share, const int64_t* __restrict__ bounds,
+                   const int64_t* __restrict__ left, int64_t n_left,
+                   P* __restrict__ pos, int64_t* __restrict__ totals,
+                   unsigned* __restrict__ ticket, u64* __restrict__ row_sum) {
     __shared__ u64 warp_tot[32];
-    u64 s = 0;
-    for (int64_t i = threadIdx.x; i < n_left; i += blockDim.x)
-        s += (u64)left[i];
-    u64 run;
-    block_exclusive_scan<u64>(s, warp_tot, &run);
-    for (int64_t r = 0; r < rows; ++r) {
-        u64 t = 0;
-        for (int64_t k = threadIdx.x; k < ntiles; k += blockDim.x)
-            t += part[r * ntiles + k];
-        u64 row_total;
-        block_exclusive_scan<u64>(t, warp_tot, &row_total);
-        if (threadIdx.x == 0) {
-            totals[r] = (int64_t)row_total;
-            delta[r * width] = (int32_t)(uint32_t)run;
+    __shared__ bool last;
+    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+    const int64_t slots = rows * width;
+    const int64_t a0 = (int64_t)blockIdx.x * share;
+    const int64_t a = a0 < slots ? a0 : slots;
+    const int64_t z = a + share < slots ? a + share : slots;
+    // delta's distance in words below a 16-byte boundary: vector q holds
+    // slots 4q - mis .. 4q - mis + 3
+    const int mis = (int)((reinterpret_cast<uintptr_t>(delta) >> 2) & 3);
+    const int4* vec = reinterpret_cast<const int4*>(delta - mis);
+    for (int64_t r = a / width; r < rows && r * width < z; ++r) {
+        const int64_t g0 = a > r * width ? a : r * width + 1;
+        const int64_t g1 = z < (r + 1) * width ? z : (r + 1) * width;
+        int64_t acc = 0;
+        if (g0 < g1) {
+            // vectors qa..qb hold [g0, g1); those between them lie inside
+            const int64_t qa = (g0 + mis) >> 2, qb = (g1 - 1 + mis) >> 2;
+            constexpr int T = CARRY_THREADS, L = CARRY_LOADS;
+            int64_t q = qa + 1 + tid;
+            for (; q + (L - 1) * T < qb; q += L * T) {
+                int4 v[L];
+#pragma unroll
+                for (int k = 0; k < L; ++k) v[k] = vec[q + k * T];
+#pragma unroll
+                for (int k = 0; k < L; ++k) acc += sum4(v[k]);
+            }
+            for (; q < qb; q += T) acc += sum4(vec[q]);
+            if (tid < (qb > qa ? 2 : 1)) {   // the first and the last vector
+                const int64_t qe = tid ? qb : qa, e = 4 * qe - mis;
+                const int4 v = vec[qe];
+                acc += (e >= g0 && e < g1 ? (int64_t)v.x : 0)
+                     + (e + 1 >= g0 && e + 1 < g1 ? (int64_t)v.y : 0)
+                     + (e + 2 >= g0 && e + 2 < g1 ? (int64_t)v.z : 0)
+                     + (e + 3 >= g0 && e + 3 < g1 ? (int64_t)v.w : 0);
+            }
+        }
+        u64 x = (u64)acc;
+#pragma unroll
+        for (int o = 16; o > 0; o >>= 1)
+            x += __shfl_xor_sync(0xffffffffu, x, o);
+        if (lane == 0) warp_tot[warp] = x;
+        __syncthreads();
+        if (tid == 0 && g0 < g1) {
+            u64 t = 0;
+            for (int w = 0; w < CARRY_THREADS / 32; ++w) t += warp_tot[w];
+            atomicAdd(row_sum + r, t);
+        }
+        __syncthreads();   // warp_tot is read before the next row's sums
+    }
+    // the ticket releases the block's row sums; the last block's acquires
+    // every block's
+    if (tid == 0) last = atom_add_acq_rel(ticket, 1u) == gridDim.x - 1;
+    __syncthreads();
+    if (!last || warp) return;
+    fence_acquire();
+    // the last block's first warp: the exclusive scan of left's totals
+    // and then the row sums, 32 a round; at row r it is the row's carry
+    const int64_t m = n_left + rows;
+    u64 run = 0;
+    for (int64_t base = 0; base < m; base += 32) {
+        const int64_t i = base + lane, r = i - n_left;
+        const u64 v = i < n_left ? (u64)left[i]
+                    : i < m ? __ldcg(row_sum + r) : 0;
+        const u64 inc = warp_inclusive_scan(v);
+        if (r >= 0 && i < m) {
+            totals[r] = (int64_t)v;
+            delta[r * width] = (int32_t)(uint32_t)(run + inc - v);
             pos[r * width] = (P)bounds[r];
         }
-        run += row_total;
+        run += __shfl_sync(0xffffffffu, inc, 31);
     }
 }
 
@@ -1887,6 +1947,21 @@ int bucket_events_typed(const W* pos, const int32_t* delta, int64_t n,
     return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------
+// A measurement helper, not the counterpart of a JAX function: one
+// thread follows k links of a chain (i = next[i], from i = 0), each
+// load's address the value of the one before, read past L1 (ld.cg), and
+// writes where it ends. Its time at two values of k gives the card's
+// time a dependent load, on which the search kernels' bounds stand
+// (chip_smoke.py).
+__global__ void chase_kernel(const int64_t* __restrict__ next, int64_t k,
+                             int64_t* __restrict__ out) {
+    int64_t i = 0;
+    for (int64_t j = 0; j < k; ++j)
+        i = (int64_t)__ldcg(reinterpret_cast<const long long*>(next + i));
+    *out = i;
+}
+
 inline unsigned int point_blocks(int64_t n) {
     const int64_t b = (n + POINT_THREADS - 1) / POINT_THREADS;
     return (unsigned int)(b < (1 << 20) ? b : (1 << 20));
@@ -1913,6 +1988,47 @@ int sweep_scan_typed(const P* pos, const int32_t* delta, int64_t n,
         pos, delta, n, min_dep, wrap18, pmax, depth,
         reinterpret_cast<u64*>(c_cov), reinterpret_cast<u64*>(c_sum),
         counter, stages[0], stages[1]);
+    return (int)cudaGetLastError();
+}
+
+// K3 (PAIRED: b segments lo/hi) or K5 (b boundaries lo; hi unused: its
+// items are the pairs (lo[s], lo[h + s]), h = ceil(b / 2)). The grid is
+// one resident wave (SMs x EP_MIN_BLOCKS: the block's 256 threads, its
+// registers and its 24 KB of shared memory let 8 share an SM), or fewer
+// where a block would get fewer than EP_TILE_MIN items; each block takes
+// `tile` consecutive items and chooses its own path.
+template <bool PAIRED>
+int search_eval(int device, int pos64, const void* pos, const int32_t* depth,
+                const int64_t* c_cov, const int64_t* c_sum, int64_t e,
+                int32_t min_dep, const void* lo, const void* hi, int64_t b,
+                int64_t* out0, int64_t* out1, void* stream) {
+    cudaError_t err = cudaSetDevice(device);
+    if (err != cudaSuccess) return (int)err;
+    if (b <= 0 || e <= 0) return (int)cudaGetLastError();
+    cudaStream_t st = (cudaStream_t)stream;
+    int sms;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+    if (err != cudaSuccess) return (int)err;
+    const int64_t n = PAIRED ? b : (b + 1) / 2, nhi = PAIRED ? b : b - n;
+    const int word = pos64 ? 8 : 4;
+    if (!PAIRED) hi = (const char*)lo + n * word;
+    int64_t blocks = (n + EP_TILE_MIN - 1) / EP_TILE_MIN;
+    if (blocks > (int64_t)sms * EP_MIN_BLOCKS)
+        blocks = (int64_t)sms * EP_MIN_BLOCKS;   // one resident wave
+    const int64_t tile = (n + blocks - 1) / blocks;
+    blocks = (n + tile - 1) / tile;
+    if (pos64)
+        search_eval_kernel<int64_t, PAIRED>
+            <<<(unsigned int)blocks, EP_THREADS, 0, st>>>(
+            (const int64_t*)pos, depth, c_cov, c_sum, e, min_dep,
+            (const int64_t*)lo, (const int64_t*)hi, n, nhi, tile, out0,
+            out1);
+    else
+        search_eval_kernel<int32_t, PAIRED>
+            <<<(unsigned int)blocks, EP_THREADS, 0, st>>>(
+            (const int32_t*)pos, depth, c_cov, c_sum, e, min_dep,
+            (const int32_t*)lo, (const int32_t*)hi, n, nhi, tile, out0,
+            out1);
     return (int)cudaGetLastError();
 }
 
@@ -1945,9 +2061,8 @@ int extract_events_typed(const int32_t* tid, const int32_t* pos,
 
 extern "C" {
 
-// Elements per block of shard_carry's partial sums, from which its
-// wrapper sizes its scratch.
-int64_t pdt_scan_tile(void) { return TILE; }
+// The slots of shard_carry's runs, the unit of a block's share.
+int64_t pdt_carry_run(void) { return CARRY_RUN; }
 
 // Events per tile of sweep_scan, slots per tile of decode_enc, ops per
 // tile of extract_events.
@@ -2022,60 +2137,26 @@ int pdt_sweep_scan(int device, int pos64, const void* pos,
                                      c_sum, scratch, st);
 }
 
-// K3 on b segments: pos/lo/hi int64 when pos64 is set, else int32.
-// The grid is one resident wave (SMs x EP_MIN_BLOCKS: the block's 256
-// threads, its registers and its 24 KB of shared memory let 8 share an
-// SM), or fewer where a block would get fewer than EP_TILE_MIN segments;
-// each block takes `tile` consecutive segments and chooses its own path.
+// K3 on b segments (lo, hi): (cover, dsum) into (out0, out1); pos/lo/hi
+// int64 when pos64 is set, else int32.
 int pdt_eval_pair(int device, int pos64, const void* pos,
                   const int32_t* depth, const int64_t* c_cov,
                   const int64_t* c_sum, int64_t e, int32_t min_dep,
-                  const void* lo, const void* hi, int64_t b, int64_t* cover,
-                  int64_t* dsum, void* stream) {
-    cudaError_t err = cudaSetDevice(device);
-    if (err != cudaSuccess) return (int)err;
-    if (b <= 0 || e <= 0) return (int)cudaGetLastError();
-    cudaStream_t st = (cudaStream_t)stream;
-    int sms;
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-    if (err != cudaSuccess) return (int)err;
-    int64_t blocks = (b + EP_TILE_MIN - 1) / EP_TILE_MIN;
-    if (blocks > (int64_t)sms * EP_MIN_BLOCKS)
-        blocks = (int64_t)sms * EP_MIN_BLOCKS;   // one resident wave
-    const int64_t tile = (b + blocks - 1) / blocks;
-    blocks = (b + tile - 1) / tile;
-    if (pos64)
-        eval_pair_kernel<int64_t><<<(unsigned int)blocks, EP_THREADS, 0, st>>>(
-            (const int64_t*)pos, depth, c_cov, c_sum, e, min_dep,
-            (const int64_t*)lo, (const int64_t*)hi, b, tile, cover, dsum);
-    else
-        eval_pair_kernel<int32_t><<<(unsigned int)blocks, EP_THREADS, 0, st>>>(
-            (const int32_t*)pos, depth, c_cov, c_sum, e, min_dep,
-            (const int32_t*)lo, (const int32_t*)hi, b, tile, cover, dsum);
-    return (int)cudaGetLastError();
+                  const void* lo, const void* hi, int64_t b, int64_t* out0,
+                  int64_t* out1, void* stream) {
+    return search_eval<true>(device, pos64, pos, depth, c_cov, c_sum, e,
+                             min_dep, lo, hi, b, out0, out1, stream);
 }
 
+// K5 on b boundaries x: (Q_cov, Q_sum) into (out0, out1); pos/x int64
+// when pos64 is set, else int32.
 int pdt_eval_boundaries(int device, int pos64, const void* pos,
                         const int32_t* depth, const int64_t* c_cov,
                         const int64_t* c_sum, int64_t e, int32_t min_dep,
-                        const void* x, int64_t b, int64_t* q_cov,
-                        int64_t* q_sum, void* stream) {
-    cudaError_t err = cudaSetDevice(device);
-    if (err != cudaSuccess) return (int)err;
-    if (b <= 0 || e <= 0) return (int)cudaGetLastError();
-    cudaStream_t st = (cudaStream_t)stream;
-    const unsigned int blocks =
-        (unsigned int)((b + POINT_THREADS - 1) / POINT_THREADS);
-    if (pos64) {
-        eval_boundaries_kernel<int64_t><<<blocks, POINT_THREADS, 0, st>>>(
-            (const int64_t*)pos, depth, c_cov, c_sum, e, min_dep,
-            (const int64_t*)x, b, q_cov, q_sum);
-    } else {
-        eval_boundaries_kernel<int32_t><<<blocks, POINT_THREADS, 0, st>>>(
-            (const int32_t*)pos, depth, c_cov, c_sum, e, min_dep,
-            (const int32_t*)x, b, q_cov, q_sum);
-    }
-    return (int)cudaGetLastError();
+                        const void* x, int64_t b, int64_t* out0,
+                        int64_t* out1, void* stream) {
+    return search_eval<false>(device, pos64, pos, depth, c_cov, c_sum, e,
+                              min_dep, x, nullptr, b, out0, out1, stream);
 }
 
 // scratch: pdt_extract_events_scratch(m) int64 words. ev_pos is int64
@@ -2161,8 +2242,8 @@ int pdt_decode_enc(int device, int tier, int code16, int is_const,
 // K9's carry on one device's (rows, width) block: pos is int64 when pos64
 // is set, else int32; bounds holds at least `rows` range starts; left the
 // n_left int64 totals of the rows on earlier devices (none: 0). Writes
-// totals[rows] and slot 0 of every row. scratch: rows *
-// ceil((width - 1) / pdt_scan_tile()) int64 words.
+// totals[rows] and slot 0 of every row. scratch: 1 + rows int64 words
+// (its ticket and the row sums).
 int pdt_shard_carry(int device, int pos64, void* pos, int32_t* delta,
                     int64_t rows, int64_t width, const int64_t* bounds,
                     const int64_t* left, int64_t n_left, int64_t* totals,
@@ -2170,20 +2251,40 @@ int pdt_shard_carry(int device, int pos64, void* pos, int32_t* delta,
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return (int)err;
     if (rows <= 0) return (int)cudaGetLastError();
-    if (width < 2 || rows > 65535) return (int)cudaErrorInvalidValue;
+    if (width < 2) return (int)cudaErrorInvalidValue;
     cudaStream_t st = (cudaStream_t)stream;
-    const int64_t ntiles = (width - 1 + TILE - 1) / TILE;
-    u64* part = reinterpret_cast<u64*>(scratch);
-    row_partials_kernel<<<dim3((unsigned int)ntiles, (unsigned int)rows),
-                          THREADS, 0, st>>>(delta, width, ntiles, part);
+    int sms;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+    if (err != cudaSuccess) return (int)err;
+    // each of at most one wave of blocks takes the same number of runs
+    const int64_t runs = (rows * width + CARRY_RUN - 1) / CARRY_RUN;
+    const int64_t wave = (int64_t)sms * CARRY_MIN_BLOCKS;
+    const int64_t per = (runs + wave - 1) / wave;
+    const int64_t blocks = (runs + per - 1) / per;
+    err = cudaMemsetAsync(scratch, 0, 8 * (1 + rows), st);
+    if (err != cudaSuccess) return (int)err;
+    unsigned* ticket = reinterpret_cast<unsigned*>(scratch);
+    u64* row_sum = reinterpret_cast<u64*>(scratch + 1);
     if (pos64)
-        row_carry_kernel<int64_t><<<1, TOTALS_THREADS, 0, st>>>(
-            part, ntiles, rows, width, bounds, left, n_left,
-            (int64_t*)pos, delta, totals);
+        shard_carry_kernel<int64_t>
+            <<<(unsigned int)blocks, CARRY_THREADS, 0, st>>>(
+            delta, width, rows, per * CARRY_RUN, bounds, left, n_left,
+            (int64_t*)pos, totals, ticket, row_sum);
     else
-        row_carry_kernel<int32_t><<<1, TOTALS_THREADS, 0, st>>>(
-            part, ntiles, rows, width, bounds, left, n_left,
-            (int32_t*)pos, delta, totals);
+        shard_carry_kernel<int32_t>
+            <<<(unsigned int)blocks, CARRY_THREADS, 0, st>>>(
+            delta, width, rows, per * CARRY_RUN, bounds, left, n_left,
+            (int32_t*)pos, totals, ticket, row_sum);
+    return (int)cudaGetLastError();
+}
+
+// The chain walk of chase_kernel: k links of next from 0, the end into
+// out[0].
+int pdt_chase(int device, const int64_t* next, int64_t k, int64_t* out,
+              void* stream) {
+    cudaError_t err = cudaSetDevice(device);
+    if (err != cudaSuccess) return (int)err;
+    chase_kernel<<<1, 1, 0, (cudaStream_t)stream>>>(next, k, out);
     return (int)cudaGetLastError();
 }
 

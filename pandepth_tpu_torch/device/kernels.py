@@ -95,8 +95,6 @@ def library() -> ctypes.CDLL:
             return _lib
         lib = ctypes.CDLL(str(build()))
         vp, i32, i64 = ctypes.c_void_p, ctypes.c_int32, ctypes.c_int64
-        lib.pdt_scan_tile.restype = i64
-        lib.pdt_scan_tile.argtypes = []
         for name in ("pdt_sweep_scan_scratch", "pdt_decode_enc_scratch",
                      "pdt_extract_events_scratch",
                      "pdt_bucket_events_scratch"):
@@ -133,6 +131,8 @@ def library() -> ctypes.CDLL:
         lib.pdt_shard_carry.restype = ctypes.c_int
         lib.pdt_shard_carry.argtypes = [ctypes.c_int, ctypes.c_int, vp, vp,
                                         i64, i64, vp, vp, i64, vp, vp, vp]
+        lib.pdt_chase.restype = ctypes.c_int
+        lib.pdt_chase.argtypes = [ctypes.c_int, vp, i64, vp, vp]
         lib.pdt_eval_pair_rows.restype = ctypes.c_int
         lib.pdt_eval_pair_rows.argtypes = [ctypes.c_int, ctypes.c_int, vp,
                                            vp, vp, vp, i64, i64, vp, i32,
@@ -140,7 +140,7 @@ def library() -> ctypes.CDLL:
         for name in ("pdt_bucket_tile", "pdt_bucket_max_world",
                      "pdt_sweep_scan_tile", "pdt_decode_enc_tile",
                      "pdt_extract_events_tile", "pdt_eval_pair_win",
-                     "pdt_decode_enc_max_blocks"):
+                     "pdt_decode_enc_max_blocks", "pdt_carry_run"):
             getattr(lib, name).restype = i64
             getattr(lib, name).argtypes = []
         lib.pdt_bucket_events.restype = ctypes.c_int
@@ -286,8 +286,9 @@ def eval_pair(pos_s: torch.Tensor, depth: torch.Tensor, c_cov: torch.Tensor,
 
 def eval_boundaries(pos_s: torch.Tensor, depth: torch.Tensor,
                     c_cov: torch.Tensor, c_sum: torch.Tensor, min_dep: int,
-                    x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """K5: (Q_cov(x), Q_sum(x)) int64 per boundary; ``x`` in the dtype of
+                    x: torch.Tensor, out=None) -> torch.Tensor:
+    """K5: (2, B) int64, the rows (Q_cov(x), Q_sum(x)) per boundary, one
+    buffer (written into ``out`` when it is given); ``x`` in the dtype of
     ``pos_s``."""
     pos64 = _pos64("eval_boundaries", pos_s)
     for t in (pos_s, x):
@@ -301,16 +302,32 @@ def eval_boundaries(pos_s: torch.Tensor, depth: torch.Tensor,
             or e == 0:
         raise ValueError("eval_boundaries: inconsistent sweep state")
     b = x.shape[0]
-    q_cov = torch.empty(b, dtype=torch.int64, device=x.device)
-    q_sum = torch.empty(b, dtype=torch.int64, device=x.device)
+    if out is None:
+        out = torch.empty((2, b), dtype=torch.int64, device=x.device)
+    if out.dtype != torch.int64 or tuple(out.shape) != (2, b) \
+            or not out.is_contiguous() or out.device != x.device:
+        raise ValueError(f"eval_boundaries: out must be a contiguous "
+                         f"(2, {b}) int64 tensor on {x.device}")
     if b:
-        lib = _loaded()
-        _check("eval_boundaries", lib.pdt_eval_boundaries(
+        _check("eval_boundaries", _loaded().pdt_eval_boundaries(
             pos_s.get_device(), pos64, _p(pos_s), _p(depth), _p(c_cov),
-            _p(c_sum), e, int(min_dep), _p(x), b, _p(q_cov), _p(q_sum),
+            _p(c_sum), e, int(min_dep), _p(x), b, _p(out[0]), _p(out[1]),
             _stream(pos_s)))
         launches["eval_boundaries"] += 1
-    return q_cov, q_sum
+    return out
+
+
+def chase(nxt: torch.Tensor, k: int) -> torch.Tensor:
+    """A measurement helper (no JAX counterpart, no launch count): one
+    thread follows ``k`` links of the int64 chain ``nxt`` (i = nxt[i],
+    from 0), each load's address the value of the one before; returns
+    where it ends, a (1,) int64 tensor. Its device time at two ``k`` gives
+    the card's time a dependent load."""
+    _require("chase", nxt, torch.int64)
+    out = torch.empty(1, dtype=torch.int64, device=nxt.device)
+    _check("chase", _loaded().pdt_chase(nxt.get_device(), _p(nxt), int(k),
+                                        _p(out), _stream(nxt)))
+    return out
 
 
 def extract_events(tid: torch.Tensor, pos: torch.Tensor, flag: torch.Tensor,
@@ -485,7 +502,8 @@ def shard_carry(pos2d: torch.Tensor, delta2d: torch.Tensor,
     exclusive prefix of the totals from ``left``'s sum (the (L,) int64
     totals of the rows on earlier devices), each row's prefix cast to
     int32 into its delta slot 0 and ``bounds[r]`` into its position slot
-    0. ``bounds`` is int64 with at least ``rows`` entries."""
+    0. ``bounds`` is int64 with at least ``rows`` entries. One launch;
+    the totals and the kernel's scratch are one allocation."""
     pos64 = _pos64("shard_carry", pos2d)
     if pos2d.dim() != 2:
         raise ValueError(f"shard_carry: needs a (rows, width) block, got "
@@ -496,20 +514,19 @@ def shard_carry(pos2d: torch.Tensor, delta2d: torch.Tensor,
     _require("shard_carry", bounds, torch.int64)
     _require("shard_carry", left, torch.int64)
     _one_device("shard_carry", pos2d, delta2d, bounds, left)
-    if width < 2 or rows > 65535 or bounds.shape[0] < rows:
+    if width < 2 or bounds.shape[0] < rows:
         raise ValueError(f"shard_carry: {rows} rows of width {width} with "
                          f"{bounds.shape[0]} bounds")
-    totals = torch.empty(rows, dtype=torch.int64, device=pos2d.device)
-    if rows:
-        lib = _loaded()
-        ntiles = -(-(width - 1) // lib.pdt_scan_tile())
-        scratch = torch.empty(rows * ntiles, dtype=torch.int64,
-                              device=pos2d.device)
-        _check("shard_carry", lib.pdt_shard_carry(
-            pos2d.get_device(), pos64, _p(pos2d), _p(delta2d), rows, width,
-            _p(bounds), _p(left), left.shape[0], _p(totals), _p(scratch),
-            _stream(pos2d)))
-        launches["shard_carry"] += 1
+    if rows == 0:
+        return torch.empty(0, dtype=torch.int64, device=pos2d.device)
+    # the totals, then the kernel's ticket and row sums
+    buf = torch.empty(2 * rows + 1, dtype=torch.int64, device=pos2d.device)
+    totals = buf[:rows]
+    _check("shard_carry", _loaded().pdt_shard_carry(
+        pos2d.get_device(), pos64, _p(pos2d), _p(delta2d), rows, width,
+        _p(bounds), _p(left), left.shape[0], _p(totals), _p(buf[rows:]),
+        _stream(pos2d)))
+    launches["shard_carry"] += 1
     return totals
 
 

@@ -3,11 +3,13 @@
 
 A read batch and segment boundaries in, per-segment statistics out:
 ``extract_events``, then ``sort_events``, then ``eval_boundaries`` at
-``seg_lo`` and at ``seg_hi``, queued on one stream with no host
-synchronisation. It has no kernel of its own.
+``seg_lo`` and ``seg_hi`` (one call on both), queued on one stream with
+no host synchronisation. It has no kernel of its own.
 """
 
 from __future__ import annotations
+
+import torch
 
 from pandepth_tpu_torch.device import sweep
 from pandepth_tpu_torch.device.events import extract_events
@@ -25,8 +27,9 @@ def coverage_step(tid, pos, flag, mapq, op_code, op_len, op_read,
     # int64 positions: the last piece ends at the int64 max, as in JAX
     pos_s, depth, c_cov, c_sum, _ = sweep.sort_events(
         ev_pos, ev_delta, min_dep=min_dep, wrap18=wrap18)
-    ql_c, ql_s = sweep.eval_boundaries(pos_s, depth, c_cov, c_sum,
-                                       min_dep, seg_lo)
-    qh_c, qh_s = sweep.eval_boundaries(pos_s, depth, c_cov, c_sum,
-                                       min_dep, seg_hi)
-    return qh_c - ql_c, qh_s - ql_s
+    # one eval_boundaries call on both sides (JAX calls it twice): on the
+    # card one launch where two cost twice the host's time
+    b = seg_lo.shape[0]
+    q_cov, q_sum = sweep.eval_boundaries(pos_s, depth, c_cov, c_sum,
+                                         min_dep, torch.cat([seg_lo, seg_hi]))
+    return q_cov[b:] - q_cov[:b], q_sum[b:] - q_sum[:b]

@@ -143,11 +143,12 @@ def eval_boundaries(pos_s: torch.Tensor, depth: torch.Tensor,
                     x: torch.Tensor):
     """(Q_cov(x), Q_sum(x)) int64: the integrals of the covered indicator
     and of covered depth over [0, x), per boundary ``x`` (in the position
-    dtype)."""
+    dtype); on the card the two rows of the kernel's one (2, B) buffer."""
     if not _use_kernel(pos_s):
         return eval_boundaries_reference(pos_s, depth, c_cov, c_sum,
                                          min_dep, x)
-    return kernels.eval_boundaries(pos_s, depth, c_cov, c_sum, min_dep, x)
+    q = kernels.eval_boundaries(pos_s, depth, c_cov, c_sum, min_dep, x)
+    return q[0], q[1]
 
 
 def eval_pair_reference(pos_s: torch.Tensor, depth: torch.Tensor,

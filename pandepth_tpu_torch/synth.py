@@ -413,6 +413,67 @@ def rows_edge_segments(bounds: np.ndarray, seed: int = 0):
 
 
 # ---------------------------------------------------------------------
+# the edges of the sharded engine's carry (shard_carry)
+
+#: slots of the shard_carry kernel's runs, the unit of a block's share of
+#: the flattened (rows x width) block (CARRY_RUN of csrc/sweep_kernels.cu;
+#: chip_smoke.py holds it to the built library's)
+CARRY_RUN = 1024
+
+#: rows of carry_edge_blocks' largest block: more than a grid's y
+#: dimension takes (65,535)
+CARRY_MANY_ROWS = 70_000
+
+
+def carry_edge_blocks(seed: int = 0):
+    """shard_carry's edges as (name, pos2d, delta2d, pos dtype, bounds,
+    left): a (rows, width) block of int64 position values of the tier
+    (each row's in its range) and int32 deltas, slot 0 of each row holding
+    junk that the carry overwrites; the (rows + 1,) int64 range cuts; the
+    int64 totals of the rows on earlier devices (maybe none). On the int32
+    and the uint32 tier: row payloads (width - 1) of 1, a run - 1, a run,
+    a run + 1 and a few runs of the kernel (CARRY_RUN: a row of a run's
+    width starts on each run, the others on a run's slots in turn), over
+    1, 8 and 37 rows; every block of 8 or more rows has an all-zero row and
+    rows of deltas near 2^30 whose carries pass 2^31 at a row edge; every
+    other block has a non-empty ``left``. On the int32 tier also
+    CARRY_MANY_ROWS rows of payload 2."""
+    rng = np.random.RandomState(seed)
+    t = CARRY_RUN
+    cases = []
+
+    def block(pos_dt, span, rows, payload, with_left):
+        b = np.sort(rng.randint(0, span, rows + 1)).astype(np.int64)
+        b[0] = 0
+        a, z = b[:-1, None], np.maximum(b[1:, None], b[:-1, None] + 1)
+        pos = a + (rng.rand(rows, payload + 1) * (z - a)).astype(np.int64)
+        delta = rng.choice([-1, 0, 1, 2], (rows, payload + 1)).astype(
+            np.int32)
+        delta[:, 0] = rng.randint(-9, 9, rows)        # junk in slot 0
+        if rows >= 8:
+            delta[1, 1:] = 0                          # an all-zero row
+            delta[2:6, 1:4] = 1 << 30                 # carries past 2^31
+        left = rng.randint(-(1 << 40), 1 << 40, 5).astype(np.int64) \
+            if with_left else np.zeros(0, np.int64)
+        return pos, delta, pos_dt, b, left
+
+    k = 0
+    for pos_dt, span in TIER_SPANS[:2]:
+        tier = np.dtype(pos_dt).name
+        for payload in (1, t - 1, t, t + 1, 3 * t + 5):
+            for rows in (1, 8, 37):
+                with_left = k % 2 == 1
+                k += 1
+                cases.append((f"{tier} {rows} rows of payload {payload}, "
+                              f"{'a' if with_left else 'no'} left",
+                              *block(pos_dt, span, rows, payload,
+                                     with_left)))
+    cases.append((f"int32 {CARRY_MANY_ROWS} rows of payload 2, a left",
+                  *block(np.int32, 2_000_000_000, CARRY_MANY_ROWS, 2, True)))
+    return cases
+
+
+# ---------------------------------------------------------------------
 # the edges of the chained-scan kernels (extract_events and bucket_events)
 
 #: ops per tile of the extract_events kernel and events per tile of the

@@ -20,8 +20,9 @@ import torch
 from pandepth_tpu.device.layout import GenomeLayout
 from pandepth_tpu.io.bam import ReadBatch
 from pandepth_tpu.sharding.engine import ShardedCoverageEngine as JaxSharded
-from pandepth_tpu.sharding.engine import _sharded_steps
+from pandepth_tpu.sharding.engine import _flat_mesh, _sharded_steps
 from pandepth_tpu_torch import synth
+from pandepth_tpu_torch.device.convert import positions_to_words
 from pandepth_tpu_torch.device import kernels
 from pandepth_tpu_torch.sharding import steps
 from pandepth_tpu_torch.sharding.engine import ShardedCoverageEngine
@@ -241,6 +242,92 @@ def test_rows_edge_segments_reach_their_edges():
         assert {0, 1, 2, 8} <= set(crossed.tolist())
         assert np.isin(lo, b).any() and np.isin(hi, b).any()
         assert (lo > hi).any()
+
+
+CARRY_EDGES = synth.carry_edge_blocks(seed=8)
+
+
+def _jax_carry(payload: np.ndarray, left: np.ndarray):
+    """pandepth_tpu/sharding/engine.py:88-93 on each row of a block whose
+    rows follow ``left``'s on earlier devices: the row's delta total
+    (``total``), every device's totals (``sums``, JAX's all_gather), and
+    the sum of those left of the row cast to int32 (``carry``). Returns
+    (totals, carries)."""
+    totals = jnp.sum(jnp.asarray(payload), axis=1, dtype=jnp.int64)
+    sums = jnp.concatenate([jnp.asarray(left, jnp.int64), totals])
+    n_dev = sums.shape[0]
+
+    def carry(rid):
+        return jnp.sum(jnp.where(jnp.arange(n_dev) < rid, sums,
+                                 0)).astype(jnp.int32)
+
+    rids = left.shape[0] + jnp.arange(payload.shape[0])
+    return totals, jax.lax.map(carry, rids, batch_size=256)
+
+
+@pytest.mark.parametrize("case", range(len(CARRY_EDGES)),
+                         ids=[f"{k}-{c[0]}" for k, c in
+                              enumerate(CARRY_EDGES)])
+def test_shard_carry_edges_match_jax(case):
+    """shard_carry's twin (the CPU's route of ``steps.shard_carry``) on
+    ``synth.carry_edge_blocks`` (the cases chip_smoke.py holds the kernel
+    to its twin on) against JAX's carry expressions: the totals, every
+    row's slot 0 (the carry cast to int32, the range's start) and the
+    rest of the block untouched. Where the CPU mesh has a device a row and
+    nothing lies to the left, also against JAX's ``finalize``: the sweep
+    state after the rows' sort and scans."""
+    _, pos, delta, pos_dt, bounds, left = CARRY_EDGES[case]
+    rows = pos.shape[0]
+    p2 = torch.from_numpy(positions_to_words(pos, pos_dt))
+    d2 = torch.from_numpy(delta.copy())
+    totals = steps.shard_carry(p2, d2, torch.from_numpy(bounds),
+                               torch.from_numpy(left))
+    jt, jc = _jax_carry(delta[:, 1:], left)
+    np.testing.assert_array_equal(totals.numpy(), np.asarray(jt))
+    np.testing.assert_array_equal(d2[:, 0].numpy(), np.asarray(jc))
+    np.testing.assert_array_equal(
+        p2[:, 0].numpy(), positions_to_words(bounds[:rows], pos_dt))
+    np.testing.assert_array_equal(d2[:, 1:].numpy(), delta[:, 1:])
+    np.testing.assert_array_equal(p2[:, 1:].numpy(),
+                                  positions_to_words(pos[:, 1:], pos_dt))
+    if rows > len(jax.devices()) or left.size:
+        return
+    fin, _ = _sharded_steps(_flat_mesh(tuple(jax.devices()[:rows])), rows, 1,
+                            False, "scan_unrolled")
+    seg = jnp.asarray(bounds[[0, -1]])
+    jout = fin(jnp.asarray(pos[:, 1:].astype(pos_dt)),
+               jnp.asarray(delta[:, 1:]), jnp.asarray(bounds), seg[:1],
+               seg[1:])
+    state = steps.sort_scan_rows(p2, d2, 1, False, int(np.iinfo(pos_dt).max))
+    for p, j in zip(state, jout[2:6]):
+        np.testing.assert_array_equal(p.numpy().astype(np.int64),
+                                      np.asarray(j).astype(np.int64))
+
+
+def test_carry_edge_blocks_reach_their_edges():
+    """``synth.carry_edge_blocks`` has row payloads of 1, a run - 1, a
+    run, a run + 1 and a few runs of the kernel's blocks, 1, 8, 37 and
+    more than 65,535 rows, an all-zero row, a carry that passes 2^31 at a
+    row edge, non-empty and empty ``left``, on both 32-bit tiers."""
+    t = synth.CARRY_RUN
+    payloads, rows, tiers, lefts = set(), set(), set(), set()
+    zero_row = crossing = False
+    for _, pos, delta, pos_dt, bounds, left in CARRY_EDGES:
+        payloads.add(delta.shape[1] - 1)
+        rows.add(delta.shape[0])
+        tiers.add(pos_dt)
+        lefts.add(left.size > 0)
+        totals = delta[:, 1:].sum(1, dtype=np.int64)
+        zero_row |= bool((~delta[:, 1:].any(1)).any())
+        carry = left.sum() + np.cumsum(totals) - totals
+        crossing |= bool(((carry[:-1] < 1 << 31)
+                          & (carry[1:] >= 1 << 31)).any())
+        assert bounds.shape[0] == delta.shape[0] + 1
+        assert (np.diff(bounds) >= 0).all()
+    assert {1, t - 1, t, t + 1, 3 * t + 5} <= payloads
+    assert {1, 8, 37} <= rows and max(rows) > 65_535
+    assert tiers == {np.int32, np.uint32} and lefts == {False, True}
+    assert zero_row and crossing
 
 
 def test_range_cuts_must_not_decrease():

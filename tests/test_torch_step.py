@@ -18,7 +18,9 @@ from pandepth_tpu.device.hosteval import WRAP18_MASK
 from pandepth_tpu.device.layout import GenomeLayout
 from pandepth_tpu.device.step import coverage_step as jax_step
 from pandepth_tpu.io.bam import ReadBatch
-from pandepth_tpu_torch.device import sweep
+from pandepth_tpu_torch import synth
+from pandepth_tpu_torch.device import kernels, sweep
+from pandepth_tpu_torch.device.convert import positions_to_words
 from pandepth_tpu_torch.device.step import coverage_step
 from pandepth_tpu_torch.synth import make_batch
 
@@ -107,3 +109,58 @@ def test_coverage_step_matches_jax(min_dep, wrap18):
     np.testing.assert_array_equal(np.asarray(jsum), dsum.numpy())
     assert cov.numpy().any()
 
+
+
+SEARCH_EDGES = synth.search_edge_cases(seed=6)
+
+
+@pytest.mark.parametrize("case", range(len(SEARCH_EDGES)),
+                         ids=[f"{k}-{c[0]}" for k, c in
+                              enumerate(SEARCH_EDGES)])
+def test_eval_boundaries_search_edges_match_jax(case):
+    """The edges of the search kernel that eval_boundaries shares with
+    eval_pair (the cases chip_smoke.py holds the kernel to its twin on),
+    one-sided: each case's boundaries lo and hi concatenated, in that
+    order, through JAX's eval_boundaries and the port's."""
+    _, pos, delta, np_dt, min_dep, lo, hi = SEARCH_EDGES[case]
+    _boundaries_match_jax(pos, delta, np_dt, min_dep,
+                          np.concatenate([lo, hi]).astype(np_dt))
+
+
+@pytest.mark.parametrize("order", ["odd count", "shuffled"])
+@pytest.mark.parametrize("case", range(len(SEARCH_EDGES)),
+                         ids=[f"{k}-{c[0]}" for k, c in
+                              enumerate(SEARCH_EDGES)])
+def test_eval_boundaries_any_order_matches_jax(case, order):
+    """The same edges with boundaries the kernel's lo-then-hi pairing does
+    not fit: the concatenation less its last boundary (an odd count), and
+    shuffled."""
+    _, pos, delta, np_dt, min_dep, lo, hi = SEARCH_EDGES[case]
+    x = np.concatenate([lo, hi]).astype(np_dt)
+    x = x[:-1] if order == "odd count" else \
+        x[np.random.RandomState(case).permutation(x.shape[0])]
+    _boundaries_match_jax(pos, delta, np_dt, min_dep, x)
+
+
+def _boundaries_match_jax(pos, delta, np_dt, min_dep, x):
+    """JAX's eval_boundaries and the port's at ``x`` on the events
+    (``pos``, ``delta``), array-equal."""
+    js = jsweep.sort_events(jnp.asarray(pos.astype(np_dt)),
+                            jnp.asarray(delta), min_dep=min_dep)
+    jq = jsweep.eval_boundaries(*js[:4], jnp.int32(min_dep), jnp.asarray(x))
+    sentinel = int(np.iinfo(np_dt).max)
+    st = sweep.sort_events(torch.from_numpy(positions_to_words(pos, np_dt)),
+                           torch.from_numpy(delta), min_dep=min_dep,
+                           pos_max=sentinel)
+    q = sweep.eval_boundaries(*st[:4], min_dep,
+                              torch.from_numpy(positions_to_words(x, np_dt)))
+    for j, p in zip(jq, q):
+        np.testing.assert_array_equal(np.asarray(j), p.numpy())
+
+
+def test_chase_takes_no_cpu_tensor():
+    """The pointer-chase probe that times a dependent load is a kernel
+    with no plain twin: a CPU tensor is refused before anything is
+    built."""
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.chase(torch.zeros(4, dtype=torch.int64), 3)

@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Time the port's redesigned kernels (K2 ``sweep_scan``, K8
 ``decode_enc``, K6 ``extract_events``, K10 ``bucket_events``, K3
-``eval_pair``, K9's ``eval_pair_rows``) at the main paths' shapes, on one
-NVIDIA GPU, for the ``pandepth_tpu_torch`` of a given checkout:
+``eval_pair``, K5 ``eval_boundaries``, K9's ``eval_pair_rows`` and
+``shard_carry``) at the main paths' shapes, on one NVIDIA GPU, for the
+``pandepth_tpu_torch`` of a given checkout:
 
     python3 tools/kernel_ab.py [--root DIR] [--iters N] [--out FILE]
                                [--only NAME,...]
@@ -44,13 +45,35 @@ the same for every root:
   exome-sized regions of 150-300 bp (``eval_pair_bed``); beside each,
   ``torch.searchsorted`` of the same 2B boundaries (the search alone, a
   yardstick);
+- eval_boundaries at the 600 boundaries of the 300 chr segments (lo,
+  then hi) over the int64 sweep state of extract_events' one-op batch
+  with JAX's sentinel (``sweep.sort_events``: 2,097,152 events,
+  ``eval_boundaries_step``), over the 15,199,506-event state
+  (``eval_boundaries_chr``), and at the 400,000 boundaries of the 200,000
+  regions over the 377,512-event state (``eval_boundaries_bed``); beside
+  each, ``torch.searchsorted`` of the same boundaries; and on the step
+  shape the step path's two calls (lo, then hi) beside one call on
+  ``torch.cat([lo, hi])`` (``eval_boundaries_step_split`` and
+  ``eval_boundaries_step_cat``);
 - eval_pair_rows on the 8-row block of those 15,199,506 events (rows of
   ``layout.shard_bounds(8)``, 2^21 + 1 slots, slot 0 the row's carry,
-  sentinel padding, K2 per row) at the 300 chr segments.
+  sentinel padding, K2 per row) at the 300 chr segments;
+- shard_carry on the same 8-row block before its sort (``shard_carry_8``,
+  no rows to its left), on its last 4 rows as the second of two 4-row
+  blocks with the first block's totals as ``left``
+  (``shard_carry_4_of_8``), and on one row of 1 + 15,199,506 slots
+  (``shard_carry_1``); beside each, ``delta2d[:, 1:].sum(1,
+  dtype=torch.int64)``, the reduction alone.
 
-Each kernel is first held array-equal to its plain twin. ``--only``
-keeps the kernels of those names (``eval_pair`` takes its four
-shapes). Prints one JSON line, and appends it to the file ``--out``
+Yardsticks (``torch.searchsorted``, ``torch.sum``) are timed by CUDA
+events and by the profiler; they are not library times (no one PyTorch
+call computes these kernels' functions).
+
+Each kernel is first held array-equal to its plain twin (shard_carry
+with slot 0 of every row overwritten before the call, so a slot it does
+not write shows). ``--only`` keeps the kernels of those names
+(``eval_pair`` takes its four shapes, ``eval_boundaries`` its five,
+``shard_carry`` its three). Prints one JSON line, and appends it to the file ``--out``
 names, if given.
 """
 
@@ -208,14 +231,14 @@ def bed_inputs(dev):
     return st, lo, hi
 
 
-def row_block(lay, pos_s, delta_s, rows: int = 8, width: int = (1 << 21) + 1):
-    """The sharded engine's (rows, width) block of the sorted events: row
-    r holds slot 0 = (bounds[r], the depth carried in) and then its
-    range's events, sentinel padding after them; with each row's K2."""
+def carry_block(lay, pos_s, delta_s, rows: int = 8,
+                width: int = (1 << 21) + 1):
+    """The sharded engine's (rows, width) event block of the sorted
+    events, as ``shard_carry`` takes it: row r holds slot 0 = (bounds[r],
+    the depth carried in) and then its range's events, sentinel padding
+    after them. Returns (pos2d, delta2d, bounds, events per row)."""
     import numpy as np
     import torch
-
-    from pandepth_tpu_torch.device import kernels
 
     dev = pos_s.device
     bounds = torch.from_numpy(lay.shard_bounds(rows)).to(dev)
@@ -231,13 +254,45 @@ def row_block(lay, pos_s, delta_s, rows: int = 8, width: int = (1 << 21) + 1):
         d2[r, 0] = cum[a - 1] if a else 0
         p2[r, 1:1 + z - a] = pos_s[a:z]
         d2[r, 1:1 + z - a] = delta_s[a:z]
+    return p2, d2, bounds, np.diff(cut)
+
+
+def row_block(lay, pos_s, delta_s, rows: int = 8, width: int = (1 << 21) + 1):
+    """:func:`carry_block`'s rows with each row's K2: ((pos2d, depth2,
+    c_cov2, c_sum2), bounds, events per row)."""
+    import torch
+
+    from pandepth_tpu_torch.device import kernels
+
+    p2, d2, bounds, per_row = carry_block(lay, pos_s, delta_s, rows, width)
+    dev = pos_s.device
     dep = torch.empty_like(d2)
     c_cov = torch.empty(p2.shape, dtype=torch.int64, device=dev)
     c_sum = torch.empty_like(c_cov)
     for r in range(rows):
         kernels.sweep_scan(p2[r], d2[r], 1, False, U32_MAX,
                            out=(dep[r], c_cov[r], c_sum[r]))
-    return (p2, dep, c_cov, c_sum), bounds, np.diff(cut)
+    return (p2, dep, c_cov, c_sum), bounds, per_row
+
+
+def step_state(dev):
+    """The int64 sweep state (pos_s, depth, c_cov, c_sum) of the CIGAR
+    feed's one-op 2^20-read batch, as ``coverage_step`` builds it:
+    extract_events with JAX's sentinel and int64 output, then
+    ``sweep.sort_events``."""
+    import torch
+
+    from pandepth_tpu_torch.device import kernels, sweep
+
+    cols, offsets, limits = extract_inputs(dev, False)
+    ev = kernels.extract_events(*cols, offsets, limits, 1796, 0, 1 << 62,
+                                torch.int64)
+    return sweep.sort_events(*ev)[:4]
+
+
+def yardstick(fn, iters: int) -> dict:
+    """A library call's time by CUDA events and by the profiler."""
+    return {"ms": cuda_ms(fn, iters), "device_ms": device_ms(fn, iters)[0]}
 
 
 def device_ops(fn, iters: int) -> dict:
@@ -262,18 +317,50 @@ def device_ops(fn, iters: int) -> dict:
             and e.key != "Activity Buffer Request"}
 
 
-def timed(fn, want, iters: int, prefix=None) -> dict:
+def timed(fn, want, iters: int, prefix=None, view=None) -> dict:
     """``fn``'s outputs against the twin's ``want`` (each cut by
-    ``prefix`` to what is compared, if given), then its times."""
+    ``prefix`` to what is compared, if given; ``fn``'s alone seen through
+    ``view``, if given), then its times."""
     got = fn()
     if prefix is not None:
         got, want = prefix(got), prefix(want)
+    if view is not None:
+        got = view(got)
     same = all(a.equal(b) for a, b in zip(got, want))
     ms = cuda_ms(fn, iters)
     dms, nk, nm = device_ms(fn, iters)
     return {"equal_to_twin": same, "ms": ms, "device_ms": dms,
             "kernels_per_call": nk, "memsets_per_call": nm,
             "host_ms": host_ms(fn), "ops": device_ops(fn, iters)}
+
+
+def boundaries_entry(kernels, sweep, state, x, iters: int) -> dict:
+    """eval_boundaries at ``x`` on ``state`` against its twin, its times,
+    and torch.searchsorted of the same boundaries."""
+    import torch
+
+    return {"events": int(state[0].numel()), "boundaries": x.numel(),
+            "searchsorted": yardstick(
+                lambda: torch.searchsorted(state[0], x), iters),
+            **timed(lambda: kernels.eval_boundaries(*state, 1, x),
+                    sweep.eval_boundaries_reference(*state, 1, x), iters)}
+
+
+def carry_entry(kernels, steps, p2, d2, bounds, left, iters: int) -> dict:
+    """shard_carry on a (rows, width) block against its twin (the totals
+    and slot 0 of every row; slot 0 overwritten before the kernel's
+    call), its times, and the sum of each row's deltas past slot 0."""
+    import torch
+
+    rp, rd = p2.clone(), d2.clone()
+    want = steps.shard_carry_reference(rp, rd, bounds, left)
+    p2[:, 0] = -5
+    d2[:, 0] = 77
+    return {"sum": yardstick(lambda: d2[:, 1:].sum(1, dtype=torch.int64),
+                             iters),
+            **timed(lambda: kernels.shard_carry(p2, d2, bounds, left),
+                    (want, rp[:, 0], rd[:, 0]), iters,
+                    view=lambda t: (t, p2[:, 0], d2[:, 0]))}
 
 
 def main() -> int:
@@ -368,7 +455,50 @@ def main() -> int:
                          lambda: torch.searchsorted(state[0], x), args.iters),
                      **timed(lambda: kernels.eval_pair(*state, 1, a, z), want,
                              args.iters)}
+    for name, state, x in (("eval_boundaries_chr", st, torch.cat([lo, hi])),
+                           ("eval_boundaries_bed", bed_st,
+                            torch.cat([bed_lo, bed_hi]))):
+        if not wanted("eval_boundaries"):
+            break
+        out[name] = boundaries_entry(kernels, sweep, state, x, args.iters)
+    if wanted("eval_boundaries"):
+        step = step_state(dev)
+        x = torch.cat([lo, hi])
+        out["eval_boundaries_step"] = boundaries_entry(kernels, sweep, step,
+                                                       x, args.iters)
+        want = (*sweep.eval_boundaries_reference(*step, 1, lo),
+                *sweep.eval_boundaries_reference(*step, 1, hi))
+        out["eval_boundaries_step_split"] = {
+            "calls": 2, **timed(lambda: (*kernels.eval_boundaries(*step, 1,
+                                                                 lo),
+                                         *kernels.eval_boundaries(*step, 1,
+                                                                  hi)),
+                                want, args.iters)}
+        out["eval_boundaries_step_cat"] = {
+            "calls": 1, **timed(lambda: kernels.eval_boundaries(
+                *step, 1, torch.cat([lo, hi])),
+                sweep.eval_boundaries_reference(*step, 1, x), args.iters)}
+        del step
     del bed_st, win_lo
+    if wanted("shard_carry"):
+        p2, d2, bounds, _ = carry_block(lay, st[0], delta_s)
+        none = torch.zeros(0, dtype=torch.int64, device=dev)
+        n = st[0].numel()
+        p1 = torch.cat([torch.zeros(1, dtype=torch.int64, device=dev),
+                        st[0]])[None]
+        d1 = torch.cat([torch.zeros(1, dtype=torch.int32, device=dev),
+                        delta_s])[None]
+        b1 = torch.tensor([0, int(lay.total)], dtype=torch.int64, device=dev)
+        first = steps.shard_carry_reference(p2[:4].clone(), d2[:4].clone(),
+                                            bounds[:5], none)
+        for name, blk in (("shard_carry_8", (p2, d2, bounds, none)),
+                          ("shard_carry_4_of_8", (p2[4:], d2[4:], bounds[4:],
+                                                  first)),
+                          ("shard_carry_1", (p1, d1, b1, none))):
+            out[name] = carry_entry(kernels, steps, *blk, args.iters)
+            out[name]["rows"], out[name]["width"] = blk[0].shape
+        out["shard_carry_1"]["events"] = n
+        del p1, d1, p2, d2
     state2, bounds, per_row = row_block(lay, st[0], delta_s)
     del st, delta_s
     if wanted("eval_pair_rows"):
