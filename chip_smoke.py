@@ -19,8 +19,9 @@ see :func:`worker`.) Phases, one line each; any failure exits non-zero:
             150 bp reads, seed 42), an exome-sized BED over it (200,000
             regions of 150-300 bp, seed 5), bench3gb.py's .list samples
             (two 4M-read BAMs on the same contigs) and its 8M-line PAF,
-            and an unsorted 8M-read BAM (bench.py's reads without their
-            sort, no index). Meanwhile g++ builds the JAX package's
+            an unsorted 8M-read BAM (bench.py's reads without their
+            sort, no index), and synth.deep_bam (270,005 reads on a 400 bp
+            contig, 270,000 of them on one base). Meanwhile g++ builds the JAX package's
             libpancov_io, with zlib, for the host sweep (the oracle)
 4. kernels  every kernel against its plain PyTorch twin on the card,
             array-equal, at the shapes of every main path of phase 6:
@@ -202,6 +203,25 @@ see :func:`worker`.) Phases, one line each; any failure exits non-zero:
             counts) and the daemon's device memory after each request
             (nvidia-smi, and its allocator's bytes), which must not grow
             after the first; then --daemon-stop, whatever happened
+11. wrap18  -a, -w 100 and chr on synth.deep_bam (depth 270,000 on one
+            base: the reference's 18-bit cells wrap it to 7,856 with -a
+            and -w below 150, not in chr mode), each counted, on one
+            device; the .SiteDepth.gz and every table byte-equal to the
+            host sweep's
+12. boot    fresh chr processes on the 8M-read fixture, each way twice in
+            turns: ``python -m pandepth_tpu_torch.cli -v`` (the start-up,
+            torch, the CUDA context and the kernel library, on the main
+            thread while a thread stashes the first windows) and a process
+            that runs ``boot.start_up()`` before it calls ``cli.main``
+            (the serial order); then one overlapped on the sharded engine
+            (the stash decoded on the host); the walls, the windows
+            stashed (at least 1 in each overlapped run) and the RunStats
+            phases; every table byte-equal to the in-process run's
+13. graft   pandepth_tpu_torch.graft_entry: ``entry()``'s coverage_step on
+            cuda:0 (counted) array-equal to its CPU twin, and
+            ``dryrun_multichip(2)``, two gloo ranks sharing the card, each
+            rank's sharded step equal to coverage_step on all the reads,
+            under JOB_SECONDS
 
 Then the card's line once more, one JSON line of kernel results, and
 last ``{"ok": true, "device": {...}}``. This process and its workers
@@ -214,6 +234,7 @@ from __future__ import annotations
 import gzip
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -253,7 +274,11 @@ PATHS = {"chr": ("pack_events", "sweep_scan", "eval_pair"),
          "site_sharded": ("shard_carry", "sweep_scan", "eval_pair_rows"),
          "site_multiproc": MESH,
          "win6": ("decode_enc", "sweep_scan", "eval_pair"),
-         "daemon": ("decode_enc", "sweep_scan", "eval_pair")}
+         "daemon": ("decode_enc", "sweep_scan", "eval_pair"),
+         "wrap18_site": ("sweep_scan", "eval_pair"),
+         "wrap18_w100": ("sweep_scan", "eval_pair"),
+         "wrap18_chr": ("sweep_scan", "eval_pair"),
+         "graft": ("extract_events", "sweep_scan", "eval_boundaries")}
 N_READS = 8_000_000
 BATCH_READS = 1 << 20   # RunConfig.max_reads_per_batch
 N_BED = 200_000
@@ -411,8 +436,8 @@ def cuda_ms(fn, iters: int = 10) -> float:
 # Set-up, run in a subprocess so that the fixtures' generation leaves
 # nothing in this process: argv = golden directory, cache directory,
 # reads, BED regions. Prints the 8M-read fixture's path, the exome BED's,
-# the .list's, the PAF's, the unsorted BAM's and the site fixture's, one
-# per line, last.
+# the .list's, the PAF's, the unsorted BAM's, the site fixture's and the
+# deep BAM's, one per line, last.
 SETUP = r"""
 import os, subprocess, sys
 
@@ -454,7 +479,7 @@ paf = os.path.join(cache, "bench3gb.paf")
 if not os.path.exists(paf):
     synth.paf_file(paf, n_reads)
 print("\n".join([bam, bed, lst, paf, synth.unsorted_bam(cache, n_reads),
-                 synth.site_bam(cache)]))
+                 synth.site_bam(cache), synth.deep_bam(cache)]))
 """
 
 # the JAX package's libpancov_io, built for the host sweep (the oracle,
@@ -467,7 +492,7 @@ def setup(golden_dir: str):
     """The port's native library, the golden fixtures and the benchmark
     fixtures (the set-up subprocess), and the oracle's native library
     (g++ at the same time); returns (fixture, BED, .list, PAF, unsorted,
-    site) paths."""
+    site, deep) paths."""
     os.makedirs(ORACLE_NATIVE, exist_ok=True)
     oracle = subprocess.Popen(
         ["g++", "-O3", "-march=native", "-std=c++17", "-shared", "-fPIC",
@@ -484,9 +509,9 @@ def setup(golden_dir: str):
         fail("setup", f"g++ of the oracle's libpancov_io exited "
                       f"{oracle.returncode}: {err[-2000:]}")
     lines = r.stdout.strip().splitlines()
-    for line in lines[:-6]:
+    for line in lines[:-7]:
         say("setup", line)
-    return lines[-6:]
+    return lines[-7:]
 
 
 class env:
@@ -2167,6 +2192,133 @@ def daemon_phase(bam: str, tmp: str, want: bytes) -> dict:
     return total
 
 
+def wrap18_phase(port_main, kernels, deep: str, tmp: str, dev) -> dict:
+    """``-a``, ``-w 100`` and chr on synth.deep_bam, each counted, on one
+    device; the .SiteDepth.gz and every table byte-equal to the host
+    sweep's, and the dump's cell at 101 wrapped to 270,000 - 2^18.
+    Returns each path's launches."""
+    runs = {}
+    for path, extra, kinds in (
+            ("wrap18_site", ["-a"], ("SiteDepth.gz", "chr.stat.gz")),
+            ("wrap18_w100", ["-w", "100"], ("win.stat.gz",)),
+            ("wrap18_chr", [], ("chr.stat.gz",))):
+        host = os.path.join(tmp, f"{path}_host")
+        host_wall = host_sweep(["-i", deep, *extra], host)
+        out = os.path.join(tmp, path)
+        _, runs[path], wall = counted(
+            kernels, path,
+            lambda: run_cli(port_main, ["-i", deep, *extra, "-o", out], dev))
+        for kind in kinds:
+            if gz_digest(f"{out}.{kind}") != gz_digest(f"{host}.{kind}"):
+                fail("wrap18", f"{path}: {kind} differs from the host "
+                               f"sweep's")
+        say("wrap18", f"{path} ({' '.join(extra) or 'chr'}): {wall:.3f} s in "
+                      f"this process; launches {runs[path]}; "
+                      f"{', '.join(kinds)} byte-equal to the host sweep's "
+                      f"(host sweep CLI process {host_wall:.3f} s)")
+    with gzip.open(os.path.join(tmp, "wrap18_site.SiteDepth.gz"), "rb") as fh:
+        if b"c1\t101\t7856\n" not in fh.read():
+            fail("wrap18", "the dump's cell at 101 is not 270,000 - 2^18")
+    return runs
+
+
+# a fresh process in the serial order: the start-up (torch, the CUDA
+# context, the kernel library) first, then the CLI, which then has no
+# start-up left to overlap; argv = the BAM, the output prefix
+SERIAL = r"""
+import sys
+
+from pandepth_tpu_torch import boot
+
+boot.start_up()
+from pandepth_tpu_torch.cli import main
+
+sys.exit(main(["pandepth", "-i", sys.argv[1], "-o", sys.argv[2], "-v"]))
+"""
+
+
+def fresh_chr(way: str, bam: str, out: str, root: str = ROOT, env=None):
+    """One fresh chr process on ``bam`` from the checkout ``root``:
+    ``overlap`` is ``python -m pandepth_tpu_torch.cli -v`` (the start-up
+    overlapped with the stash), ``serial`` SERIAL. Returns (process wall
+    on the host clock, windows stashed, RunStats line, chr table bytes);
+    raises RuntimeError when the process fails."""
+    cmd = [sys.executable, "-m", "pandepth_tpu_torch.cli", "-i", bam,
+           "-o", out, "-v"] if way == "overlap" else \
+        [sys.executable, "-c", SERIAL, bam, out]
+    t0 = time.perf_counter()
+    r = subprocess.run(cmd, cwd=root, env=env, capture_output=True,
+                       text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    if r.returncode != 0:
+        raise RuntimeError(f"the {way} process exited {r.returncode}: "
+                           f"{r.stderr[-2000:]}")
+    line = [ln[6:] for ln in r.stderr.splitlines()
+            if ln.startswith("INFO: wall=")][-1]
+    stashed = re.search(r"stashed=(\d+)", line)
+    return wall, int(stashed.group(1)) if stashed else 0, line, table(out)
+
+
+def boot_phase(bam: str, tmp: str, want: bytes) -> dict:
+    """Fresh chr processes on ``bam``: overlapped and SERIAL in turns
+    overlap, serial, serial, overlap, then one overlapped on the sharded
+    engine (``PANDEPTH_SHARDED=1``: the stash and the rest of the stream
+    decoded on the host); every table byte-equal to ``want``, and at least
+    one window stashed in each overlapped run. Returns each way's
+    (process wall, windows stashed, RunStats line) runs."""
+    sharded = dict(os.environ, PANDEPTH_SHARDED="1")
+    got = {"overlap": [], "serial": [], "overlap_sharded": []}
+    for way in ("overlap", "serial", "serial", "overlap", "overlap_sharded"):
+        try:
+            run = fresh_chr(way.removesuffix("_sharded"), bam,
+                            os.path.join(tmp, f"boot_{way}{len(got[way])}"),
+                            env=sharded if way.endswith("_sharded") else None)
+        except RuntimeError as e:
+            fail("boot", str(e))
+        if run[3] != want:
+            fail("boot", f"the {way} process's chr table differs from the "
+                         f"in-process run's")
+        got[way].append(run[:3])
+    if any(stashed < 1 for _, stashed, _ in
+           got["overlap"] + got["overlap_sharded"]):
+        fail("boot", f"an overlapped process stashed no window: {got}")
+    for way, runs in got.items():
+        say("boot", f"{way}: fresh chr process walls "
+                    f"{', '.join(f'{w:.3f}' for w, _, _ in runs)} s; "
+                    f"RunStats {' | '.join(ln for _, _, ln in runs)}")
+    say("boot", "every table byte-equal to the in-process run's")
+    return got
+
+
+def graft_phase(kernels) -> dict:
+    """``graft_entry.entry()`` on cuda:0, counted, against its CPU twin,
+    array-equal; ``dryrun_multichip(2)`` (gloo ranks sharing the card)
+    under JOB_SECONDS. Returns entry()'s launches."""
+    import torch
+
+    from pandepth_tpu_torch import graft_entry
+
+    fn, args = graft_entry.entry()
+    (cov, dsum), runs, wall = counted(
+        kernels, "graft", lambda: [t.cpu() for t in fn(*args)])
+    twin_fn, twin_args = graft_entry.entry(device="cpu")
+    want = twin_fn(*twin_args)
+    if not (torch.equal(cov, want[0]) and torch.equal(dsum, want[1])):
+        fail("graft", f"entry() on the card ({cov.tolist()}, "
+                      f"{dsum.tolist()}) differs from its CPU twin "
+                      f"({want[0].tolist()}, {want[1].tolist()})")
+    t0 = time.perf_counter()
+    dry = graft_entry.dryrun_multichip(2, seconds=JOB_SECONDS)
+    dry_wall = time.perf_counter() - t0
+    say("graft", f"entry(): coverage_step on cuda:0 {wall * 1e3:.3f} ms "
+                 f"(first call, host clock), cover {cov.tolist()}, launches "
+                 f"{runs}, array-equal to its CPU twin; dryrun_multichip(2): "
+                 f"{dry['backend']} ranks on {', '.join(dry['devices'])}, "
+                 f"{dry_wall:.3f} s, every rank's (cover, dsum) equal to "
+                 f"coverage_step on all the reads ({dry['cover'].tolist()})")
+    return runs
+
+
 def main() -> int:
     if sys.argv[1:2] == ["worker"]:
         return worker(sys.argv[2:])
@@ -2216,11 +2368,12 @@ def main() -> int:
     with tempfile.TemporaryDirectory(dir=CACHE) as tmp:
         # 3. set-up
         t0 = time.perf_counter()
-        bam, bed, lst, paf, uns, site = setup(tmp)
+        bam, bed, lst, paf, uns, site, deep = setup(tmp)
         say("setup", f"{bam} ({os.path.getsize(bam)} bytes), {bed}, {lst}, "
                      f"{paf} ({os.path.getsize(paf)} bytes), {uns} "
                      f"({os.path.getsize(uns)} bytes), {site} "
-                     f"({os.path.getsize(site)} bytes) "
+                     f"({os.path.getsize(site)} bytes), {deep} "
+                     f"({os.path.getsize(deep)} bytes) "
                      f"{time.perf_counter() - t0:.1f} s")
 
         # 4. kernels against their twins
@@ -2603,6 +2756,15 @@ def main() -> int:
 
         # 10. daemon: three chr runs through the resident daemon
         paths["daemon"] = daemon_phase(bam, tmp, port_tab)
+
+        # 11. wrap18: the 18-bit depth cells on a pileup past 2^18
+        paths.update(wrap18_phase(port_main, kernels, deep, tmp, dev))
+
+        # 12. boot: fresh processes, start-up overlapped and serial
+        boot_phase(bam, tmp, port_tab)
+
+        # 13. graft: the twin of __graft_entry__.py
+        paths["graft"] = graft_phase(kernels)
 
     if "jax" in sys.modules:
         fail("imports", "jax was imported")

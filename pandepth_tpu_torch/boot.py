@@ -1,6 +1,6 @@
-"""The port's launcher: ``python -m pandepth_tpu_torch`` or
-``pandepth-torch``; the port of ``pandepth_tpu/boot.py``'s ``main`` and
-``disable_thp``.
+"""The port's launcher and its start-up: ``python -m pandepth_tpu_torch``
+or ``pandepth-torch``; the port of ``pandepth_tpu/boot.py``'s ``main``,
+``disable_thp`` and the start-up of ``background``.
 
 A run goes through the resident daemon (:mod:`pandepth_tpu_torch.serve`)
 unless ``PANDEPTH_DAEMON=0``: a fresh process pays ``import torch`` and
@@ -10,18 +10,78 @@ pandepth_tpu_torch.cli`` stays a run in its own process, and the
 multi-process launcher (:mod:`pandepth_tpu_torch.sharding.launch`) never
 goes through the daemon.
 
+A run in its own process overlaps that start-up with its native feed:
+``pandepth_tpu_torch.run.prepare`` starts the first file's native loader
+and a thread that stashes its encoded windows, then runs
+:func:`start_up` (``import torch``, the devices, the CUDA context, the
+kernel library) on the calling thread, and makes the engine on the
+devices it returns. JAX's ``background`` runs the start-up on the
+thread instead; on an H100's host that made a fresh process slower than
+no overlap at all, since the start-up took 1.8 s longer on a thread than
+on the main thread (``PERF.md``, ``tools/boot_ab.py``). A failed
+start-up raises :class:`InitError`: there is no fallback onto the CPU.
+
 This module and the client side of :mod:`~pandepth_tpu_torch.serve`
 import no torch: the client forks the daemon, and CUDA does not survive a
-fork. JAX's ``restore_site``, ``configure_jax``, ``jax_cache_dir`` and
-``background`` have no counterpart: the first two serve a ``python -S``
-launcher and jax, and the overlap of torch's start-up with the feed is
-not ported.
+fork. JAX's ``restore_site``, ``configure_jax`` and ``jax_cache_dir``
+have no counterpart: they serve a ``python -S`` launcher and jax's
+config.
 """
 
 from __future__ import annotations
 
 import os
 import sys
+
+
+class InitError(RuntimeError):
+    """The start-up failed: no CUDA device, a kernel library that does not
+    build or load, a failed ``import torch``. The message is the
+    failure's, which is chained."""
+
+
+_started = False
+
+
+def _init_and_touch() -> list:
+    """``import torch``; the devices of ``cli.resolve_devices(None)``
+    (every visible card, or an error when there is none); and
+    unless every device is the CPU, the CUDA context of the first card
+    (one small allocation) and the kernel library (built with nvcc at its
+    first use)."""
+    import torch
+
+    from pandepth_tpu_torch.cli import resolve_devices
+
+    devs = resolve_devices(None)
+    cuda = [d for d in devs if d.type == "cuda"]
+    if cuda:
+        from pandepth_tpu_torch.device import kernels
+
+        torch.cuda.init()
+        torch.empty(1, device=cuda[0])
+        kernels.library()
+    return devs
+
+
+def start_up() -> list:
+    """The devices of a run (``cli.resolve_devices(None)``), after torch,
+    the CUDA context and the kernel library have started, on the calling
+    thread; raises :class:`InitError` if any of them fails. Cheap once it
+    has succeeded in this process."""
+    global _started
+    try:
+        devs = _init_and_touch()
+    except Exception as e:
+        raise InitError(str(e)) from e
+    _started = True
+    return devs
+
+
+def started() -> bool:
+    """:func:`start_up` has succeeded in this process: a run has no
+    start-up left to overlap with its feed."""
+    return _started
 
 
 def disable_thp(numpy: bool = True) -> None:

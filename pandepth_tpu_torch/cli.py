@@ -6,7 +6,9 @@ src/PanDepth.cpp:84-293) — same flags, same ``.list`` expansion, same
 GFF-vs-GTF and BED column autodetection, same hidden ``-s`` flag; the
 reference strips *all* dashes from an option token (``replace_all``),
 so ``--i`` == ``-i``. The run is ``pandepth_tpu_torch.run.run`` on the
-devices of :func:`resolve_devices`. Usage::
+devices of :func:`resolve_devices`, which
+:func:`pandepth_tpu_torch.boot.start_up` decides once the run has started
+its feed. Usage::
 
     python -m pandepth_tpu_torch.cli -i x.bam -o out
 """
@@ -186,19 +188,29 @@ def resolve_devices(device=None) -> list:
 
 def main(argv: Optional[List[str]] = None, device=None) -> int:
     """Parse ``argv`` and run on ``device`` (see :func:`resolve_devices`;
-    more than one device elects the sharded engine)."""
+    more than one device elects the sharded engine). With
+    ``device=None`` the run decides the devices when it makes its engine
+    (:func:`pandepth_tpu_torch.boot.start_up`, which also starts torch,
+    the CUDA context and the kernel library while a thread stashes the
+    first file's encoded windows); an explicit ``device`` is checked here
+    first."""
     cfg = parse_args(argv if argv is not None else sys.argv)
     if cfg is None:
         return 0
-    try:
-        devs = resolve_devices(device)
-    except (RuntimeError, ValueError) as e:
-        print(f"Error: {e}", file=sys.stderr)
-        return 1
+    if device is not None:
+        try:
+            device = resolve_devices(device)
+        except (RuntimeError, ValueError) as e:
+            print(f"Error: {e}", file=sys.stderr)
+            return 1
+    from pandepth_tpu_torch.boot import InitError
     from pandepth_tpu_torch.run import run
 
     try:
-        return run(cfg, devs)
+        return run(cfg, device)
+    except InitError as e:
+        print(f"Error: {e}", file=sys.stderr)
+        return 1
     except OSError as e:
         print(f"Error: Failed to open the file: {e.filename or e}",
               file=sys.stderr)

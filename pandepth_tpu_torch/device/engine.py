@@ -55,6 +55,7 @@ from pandepth_tpu_torch.device.convert import (code_words,
                                               device_pos_dtype,
                                               positions_to_words)
 from pandepth_tpu_torch.device.events import extract_events
+from pandepth_tpu_torch.feed import enc_caps
 
 
 #: the encoded-window code groups, in finalize_encoded's order: mixed
@@ -114,9 +115,9 @@ class CoverageEngine:
         # (state tensor, pos_s int64, depth int32): the fetched state
         self._host: Optional[tuple] = None
         # encoded windows: the same variables and defaults as the JAX
-        # engine (the native encoder sizes its windows by enc_cap/enc_exc)
-        self.enc_cap = int(os.environ.get("PANDEPTH_ENC_CAP", 1 << 19))
-        self.enc_exc = int(os.environ.get("PANDEPTH_ENC_EXC", 1 << 13))
+        # engine and the pre-engine stash (the native encoder sizes its
+        # windows by enc_cap/enc_exc)
+        self.enc_cap, self.enc_exc = enc_caps()
         self.enc_block = int(os.environ.get("PANDEPTH_ENC_BLOCK", 8))
         # per code group: the stacked blocks on the device, and the
         # windows waiting on the host for their block to fill

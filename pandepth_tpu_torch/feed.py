@@ -1,18 +1,19 @@
 """The readers' half of a run, copied from ``pandepth_tpu/run.py`` (its
 jax-free helpers, under public names): input sniffing, the native
-loaders and their feed, the header read, the region filters of the
+loaders and their feed (with the puller of encoded windows that lets a
+run stash them on a thread before its engine exists, while torch starts:
+``pandepth_tpu_torch.run.prepare``), the header read, the region filters of the
 Python decoders' batches and CRAM's intervals, and the PAF contig table
 from a FASTA.
 
-What the JAX package keeps there only for its engines' pre-engine stash
-of encoded windows (the background jax init) and its finalize warm-up is
-not copied: the port's engines have neither.
+JAX's finalize warm-up (``maybe_warm_finalize``) is not copied: the
+port's engines have none.
 """
 
 from __future__ import annotations
 
 import os
-from typing import List, Optional
+from typing import List, Optional, Tuple
 
 import numpy as np
 
@@ -141,28 +142,75 @@ def try_native_load(path: str, config: RunConfig,
         return None
 
 
-def feed_stream(engine, r) -> None:
+def enc_caps() -> Tuple[int, int]:
+    """The encoded windows' slots and escape slots, ``PANDEPTH_ENC_CAP``
+    and ``PANDEPTH_ENC_EXC``: read here by the pre-engine stash and by
+    ``CoverageEngine``, so that both size their windows alike."""
+    return (int(os.environ.get("PANDEPTH_ENC_CAP", 1 << 19)),
+            int(os.environ.get("PANDEPTH_ENC_EXC", 1 << 13)))
+
+
+class EncPuller:
+    """Encoded windows pulled one at a time from a NativeBamStream, with
+    the u8 -> u16 code-tier upgrade: windows can be pulled before the
+    engine exists (the pre-engine stash) and the rest streamed after."""
+
+    def __init__(self, r, cap: int, exc: int):
+        self.r, self.cap, self.exc = r, cap, exc
+        self._take = r.take_enc_acc
+        self._on_u8 = True
+        self.eof = False
+
+    def next(self):
+        """One (n, dd, ll, excd, excl, base) window, or None at EOF."""
+        win = self._take(self.cap, self.exc)
+        if win is None:
+            self.eof = True
+            return None
+        if self._on_u8 and win[0] < self.cap \
+                and (self.r.last_nd >= self.exc
+                     or self.r.last_nl >= self.exc):
+            # short buffer through escape saturation: the input is
+            # sparser than 8-bit zigzag covers — upgrade the rest of the
+            # feed to 16-bit codes (4 B/pair)
+            self._take = self.r.take_enc_acc16
+            self._on_u8 = False
+        return win
+
+    def windows(self, stash=()):
+        """The windows of ``stash`` (pulled earlier), then every window
+        left in the stream."""
+        yield from stash
+        while not self.eof:
+            win = self.next()
+            if win is not None:
+                yield win
+
+
+def feed_stream(engine, r, puller: Optional[EncPuller] = None,
+                stash=()) -> None:
     """Pull event windows from a NativeBamStream into the engine.
 
     An engine that elects encoded windows (``wants_encoded_windows``)
     gets the encoder's windows of ``engine.enc_cap`` slots; every other
     engine (the sharded one has no encoded path) the raw ``take32`` /
-    ``take64`` pairs."""
+    ``take64`` pairs. ``puller`` and ``stash`` carry the windows pulled
+    before the engine existed: they go in first, and the same puller
+    goes on; an engine without encoded windows then decodes them and the
+    rest of the stream on the host, since mixing ``take_enc_acc`` with
+    ``take32`` on one stream would lose the encoder's accumulated
+    pairs."""
     if getattr(engine, "wants_encoded_windows", False) and \
             hasattr(r, "take_enc_acc"):
-        take, on_u8 = r.take_enc_acc, True
-        while True:
-            win = take(engine.enc_cap, engine.enc_exc)
-            if win is None:
-                break
-            if on_u8 and win[0] < engine.enc_cap \
-                    and (r.last_nd >= engine.enc_exc
-                         or r.last_nl >= engine.enc_exc):
-                # short buffer through escape saturation: the input is
-                # sparser than 8-bit zigzag covers — upgrade the rest of
-                # the feed to 16-bit codes (4 B/pair)
-                take, on_u8 = r.take_enc_acc16, False
+        p = puller if puller is not None else \
+            EncPuller(r, engine.enc_cap, engine.enc_exc)
+        for win in p.windows(stash):
             engine.add_encoded_window(*win)
+    elif puller is not None:
+        from pandepth_tpu_torch.device.hosteval import decode_enc_host
+
+        for win in puller.windows(stash):
+            engine.add_start_end(*decode_enc_host(*win[1:], win[0]))
     else:
         while True:
             n = r.wait()

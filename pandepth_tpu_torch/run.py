@@ -16,24 +16,33 @@ a rank of a multi-process job
 :class:`~pandepth_tpu_torch.sharding.multihost.MultihostCoverageEngine`,
 which feeds only the rank's share of the files, computes on every rank
 and writes on rank 0.
+
+Importing this module imports no torch: a run started by
+``pandepth_tpu_torch.cli.main`` reads its header, prepares its targets
+and starts the first file's native loader before
+``pandepth_tpu_torch.boot.start_up`` imports torch (while a thread
+stashes the loader's windows), and only :func:`make_engine` and what
+follows it import torch and the engines.
 """
 
 from __future__ import annotations
 
 import os
 import sys
+import threading
+import time
 import traceback
-from typing import Dict, Iterator, List, NamedTuple, Optional, Sequence, \
-    Tuple
+from typing import (TYPE_CHECKING, Callable, Dict, Iterator, List,
+                    NamedTuple, Optional, Sequence, Tuple)
 
 import numpy as np
-import torch
 
+from pandepth_tpu_torch import boot
 from pandepth_tpu_torch.config import MODE_CHR, MODE_WIN_SMALL, RunConfig
-from pandepth_tpu_torch.device.engine import CoverageEngine
 from pandepth_tpu_torch.device.layout import GenomeLayout
-from pandepth_tpu_torch.feed import (RegionCursor, cheap_header,
-                                     feed_stream, filter_batch_to_windows,
+from pandepth_tpu_torch.feed import (EncPuller, RegionCursor, cheap_header,
+                                     enc_caps, feed_stream,
+                                     filter_batch_to_windows,
                                      index_present, intervals_in_windows,
                                      is_paf, open_alignment,
                                      paf_contigs_from_fasta,
@@ -42,8 +51,6 @@ from pandepth_tpu_torch.io.bam import BamHeader, ReadBatch
 from pandepth_tpu_torch.io.fasta import gc_count_ranges, load_ref_bases
 from pandepth_tpu_torch.io.paf import iter_paf_events, paf_contig_table
 from pandepth_tpu_torch.io.sam_text import SamReader
-from pandepth_tpu_torch.sharding.engine import ShardedCoverageEngine
-from pandepth_tpu_torch.sharding.multihost import MultihostCoverageEngine
 from pandepth_tpu_torch.stats.tables import (aggregate_genes,
                                              mode6_window_rows,
                                              output_prefix, table_path,
@@ -54,7 +61,20 @@ from pandepth_tpu_torch.targets.model import TargetSet
 from pandepth_tpu_torch.targets.parse import parse_targets
 from pandepth_tpu_torch.targets.windows import synthesize_default_targets
 from pandepth_tpu_torch.utils.log import (RunStats, maybe_profile, phase,
-                                          set_verbose)
+                                          process_seconds, set_verbose)
+
+if TYPE_CHECKING:
+    import torch
+
+    from pandepth_tpu_torch.device.engine import CoverageEngine
+    from pandepth_tpu_torch.sharding.engine import ShardedCoverageEngine
+
+    Engine = CoverageEngine | ShardedCoverageEngine
+
+#: the most encoded windows stashed before the engine exists (~2 MB a
+#: window at the default enc_cap), so that a large file keeps the
+#: loader's bounded memory
+STASH_WINDOWS = 64
 
 
 class NativeFeedError(RuntimeError):
@@ -63,7 +83,6 @@ class NativeFeedError(RuntimeError):
     decoders."""
 
 
-Engine = CoverageEngine | ShardedCoverageEngine
 #: a rank's input files, as (index in the whole list, path)
 Share = Sequence[Tuple[int, str]]
 
@@ -78,12 +97,19 @@ class Staged(NamedTuple):
     lengths: np.ndarray
     ref_bases: Optional[Dict[int, bytes]]
     regions: Optional[tuple]     # the read filter, see read_regions
-    reader: Optional[object]     # the open SAM or CRAM reader
+    # the first file's open reader: SAM or CRAM, or the native loader
+    reader: Optional[object]
+    # the encoded windows pulled before the engine existed, and the
+    # puller that goes on with the stream
+    puller: Optional[EncPuller] = None
+    stash: tuple = ()
 
 
-def devices_of(device) -> List[torch.device]:
+def devices_of(device) -> List["torch.device"]:
     """One device, or a sequence of them (repeats allowed: each entry is
     one row of the sharded engine), as a list of torch devices."""
+    import torch
+
     many = device if isinstance(device, (list, tuple)) else [device]
     if not many:
         raise ValueError("no device given")
@@ -114,10 +140,17 @@ def make_engine(layout: GenomeLayout, device, **kw) -> Engine:
     if multihost_wanted():
         if len(devs) != 1:
             raise ValueError(f"a rank runs on one device, not {len(devs)}")
+        from pandepth_tpu_torch.sharding.multihost import \
+            MultihostCoverageEngine
+
         return MultihostCoverageEngine(layout, device=devs[0], **kw)
     force = os.environ.get("PANDEPTH_SHARDED")
     if force != "0" and (force == "1" or len(devs) > 1):
+        from pandepth_tpu_torch.sharding.engine import ShardedCoverageEngine
+
         return ShardedCoverageEngine(layout, devices=devs, **kw)
+    from pandepth_tpu_torch.device.engine import CoverageEngine
+
     return CoverageEngine(layout, device=devs[0], **kw)
 
 
@@ -261,31 +294,89 @@ def _feed_cram_intervals(engine: Engine, r, path: str,
     return True
 
 
+def _native_loader(path: str, config: RunConfig, regions, **later):
+    """libpancov_io's loader of the BAM ``path``; raises
+    :class:`NativeFeedError` when it cannot read it."""
+    r = try_native_load(path, config, regions=regions, **later)
+    if r is None:
+        raise NativeFeedError(
+            f"libpancov_io's loader cannot read the BAM {path} "
+            f"(set PANDEPTH_NO_NATIVE=1 for the Python decoder)")
+    return r
+
+
+def _enc_hint() -> bool:
+    """Whether the engine, not made yet, will plausibly take encoded
+    windows (``pandepth_tpu.run.run_alignment``'s guess): ``PANDEPTH_ENC``
+    when set, else not on a platform forced to the CPU. A wrong guess
+    still feeds right: the stash is then decoded on the host."""
+    env = os.environ.get("PANDEPTH_ENC")
+    if env is not None:
+        return env != "0"
+    return os.environ.get("PANDEPTH_FORCE_PLATFORM") != "cpu"
+
+
+def _stash(puller: EncPuller, ready: Callable[[], bool]) -> List[tuple]:
+    """``puller``'s encoded windows, at most STASH_WINDOWS of them, until
+    ``ready()`` or the end of the stream."""
+    stash: List[tuple] = []
+    while len(stash) < STASH_WINDOWS and not puller.eof and not ready():
+        win = puller.next()
+        if win is not None:
+            stash.append(win)
+    return stash
+
+
+class _Stasher(threading.Thread):
+    """:func:`_stash` on a thread, until :meth:`stop`: the encoded windows
+    a run pulls while its start-up runs on the calling thread."""
+
+    def __init__(self, puller: EncPuller):
+        super().__init__(name="pandepth-torch-stash")
+        self.puller = puller
+        self.ready = threading.Event()
+        self.stash: List[tuple] = []
+        self.error: Optional[BaseException] = None
+        self.seconds = 0.0
+
+    def run(self) -> None:
+        t0 = time.perf_counter()
+        try:
+            self.stash = _stash(self.puller, self.ready.is_set)
+        except BaseException as e:  # raised again by _start_up
+            self.error = e
+        self.seconds = time.perf_counter() - t0
+
+    def stop(self) -> None:
+        self.ready.set()
+        self.join()
+
+
 def feed(engine: Engine, path: str, config: RunConfig, names: List[str],
-         regions, reader=None, member: int = 0) -> None:
+         regions, reader=None, member: int = 0,
+         puller: Optional[EncPuller] = None, stash=()) -> None:
     """Every event of ``path`` into ``engine``, by the first feed that
     takes it: the native stream (encoded windows or raw pairs, as the
     engine elects), the native one-shot loader, native SAM text,
     vectorised CRAM, then the Python decoders' batches into the engine's
     ``add_batch``. ``reader`` is the already open reader of a SAM or CRAM
-    input; without one, ``path`` is a BAM, and unless
-    ``PANDEPTH_NO_NATIVE=1`` a native loader that fails raises.
-    ``member`` > 0 is a later file of a ``.list``, read in the first
-    file's contig space (the reference's quirk Q5)."""
-    later = {} if member == 0 else {"ext_offsets": engine.layout.offsets,
-                                    "ext_limits": engine.layout.limits}
+    input, or the native loader that :func:`prepare` started, with the
+    encoded windows it stashed (``puller``, ``stash``); without one,
+    ``path`` is a BAM, and unless ``PANDEPTH_NO_NATIVE=1`` a native
+    loader that fails raises. ``member`` > 0 is a later file of a
+    ``.list``, read in the first file's contig space (the reference's
+    quirk Q5)."""
     r = reader
     if r is None:
         if _native_wanted():
-            r = try_native_load(path, config, regions=regions, **later)
-            if r is None:
-                raise NativeFeedError(
-                    f"libpancov_io's loader cannot read the BAM {path} "
-                    f"(set PANDEPTH_NO_NATIVE=1 for the Python decoder)")
+            later = {} if member == 0 else {
+                "ext_offsets": engine.layout.offsets,
+                "ext_limits": engine.layout.limits}
+            r = _native_loader(path, config, regions, **later)
         else:
             r = open_alignment(path, threads=config.threads)
     if hasattr(r, "wait") and hasattr(r, "take32"):
-        feed_stream(engine, r)
+        feed_stream(engine, r, puller, stash)
         return
     if hasattr(r, "events"):
         _add_loaded(engine, r, r.n_events)
@@ -304,12 +395,53 @@ def feed(engine: Engine, path: str, config: RunConfig, names: List[str],
         engine.add_batch(batch)
 
 
-def prepare(config: RunConfig, device,
-            stats: Optional[RunStats] = None) -> Staged:
+def _start_up(loader, device, stats: Optional[RunStats]):
+    """The run's devices and the windows stashed meanwhile: ``device``,
+    or when it is None the devices of
+    :func:`pandepth_tpu_torch.boot.start_up` on this thread (timed as
+    ``start_up``). When that start-up is still to do and ``loader`` (the
+    first file's native stream, or None) has encoded windows that the
+    engine will plausibly take, a :class:`_Stasher` pulls them
+    meanwhile. Returns (devices, puller, stash); (devices, None, []) when
+    nothing was pulled, so that the engine's own feed takes the stream."""
+    if device is not None:
+        return device, None, []
+    stasher = None
+    if loader is not None and hasattr(loader, "take_enc_acc") \
+            and _enc_hint() and not boot.started():
+        stasher = _Stasher(EncPuller(loader, *enc_caps()))
+        stasher.start()
+    try:
+        with phase(stats, "start_up"):
+            devs = boot.start_up()
+    finally:
+        if stasher is not None:
+            stasher.stop()
+    if stasher is None:
+        return devs, None, []
+    if stasher.error is not None:
+        raise stasher.error
+    if not (stasher.stash or stasher.puller.eof):
+        return devs, None, []
+    if stats is not None:
+        stats.note_phase("stash", stasher.seconds)
+    return devs, stasher.puller, stasher.stash
+
+
+def prepare(config: RunConfig, device=None,
+            stats: Optional[RunStats] = None,
+            share: Optional[Share] = None) -> Staged:
     """Read the header (of the first file of a ``.list``), prepare the
-    targets and the read filter, and make an empty engine on ``device``
-    (one device or a sequence of them, see :func:`make_engine`). A PAF
-    run's contig table comes from ``-r``'s FASTA or the first PAF file."""
+    targets and the read filter, start the first file's native loader
+    (unless ``share``, a rank's files, leaves that file out), and make an
+    empty engine on ``device`` (one device or a sequence of them, see
+    :func:`make_engine`; None: the devices of
+    :func:`pandepth_tpu_torch.boot.start_up`). The order is
+    ``pandepth_tpu.run.run_alignment``'s, the threads swapped: while the
+    start-up runs on this thread, a thread stashes the loader's encoded
+    windows (:func:`_start_up`), and the engine is made after both. A
+    PAF run's contig table comes from ``-r``'s FASTA or the first PAF
+    file."""
     if _native_wanted():
         _load_native()
     if is_paf(config.inputs[0]):
@@ -330,16 +462,32 @@ def prepare(config: RunConfig, device,
         mode, targets = prepare_targets(config, names, lengths,
                                         header.name_to_tid(), ref_bases)
     # the reference's 18-bit depth cells (quirk Q1), decided exactly as
-    # pandepth_tpu.run.run_alignment decides it: without a usable index,
-    # and in multi-file runs
-    wrap18 = not (index_present(path) and config.use_index) \
-        or len(config.inputs) > 1
-    engine = make_engine(GenomeLayout(lengths), device,
-                         flags_mask=config.flags, min_mapq=config.min_mapq,
-                         min_dep=config.min_depth, wrap18=wrap18)
+    # pandepth_tpu.run.run_alignment decides it: they are used when
+    # dumping sites, in small-window mode, without a usable index, and in
+    # multi-file runs
+    has_index = index_present(path) and config.use_index
+    wrap18 = bool(config.site_output or mode == MODE_WIN_SMALL
+                  or not has_index or len(config.inputs) > 1)
+    regions = read_regions(config, mode, targets, lengths, path, header)
+    loader = None
+    if reader is None and _native_wanted() and \
+            (share is None or any(i == 0 for i, _ in share)):
+        loader = reader = _native_loader(path, config, regions)
+    try:
+        devs, puller, stash = _start_up(loader, device, stats)
+        engine = make_engine(GenomeLayout(lengths), devs,
+                             flags_mask=config.flags,
+                             min_mapq=config.min_mapq,
+                             min_dep=config.min_depth, wrap18=wrap18)
+    except BaseException:
+        if loader is not None:
+            loader.close()
+        raise
+    if stats is not None:
+        stats.stashed = len(stash)
+        stats.engine_at = process_seconds()
     return Staged(engine, mode, targets, names, lengths, ref_bases,
-                  read_regions(config, mode, targets, lengths, path,
-                               header), reader)
+                  regions, reader, puller, tuple(stash))
 
 
 def _prepare_paf(config: RunConfig, device,
@@ -357,9 +505,12 @@ def _prepare_paf(config: RunConfig, device,
     with phase(stats, "targets"):
         mode, targets = prepare_targets(config, names, lengths, chr2tid,
                                         ref_bases)
-    engine = make_engine(GenomeLayout(lengths), device,
+    engine = make_engine(GenomeLayout(lengths),
+                         _start_up(None, device, stats)[0],
                          flags_mask=config.flags, min_mapq=config.min_mapq,
                          min_dep=config.min_depth, wrap18=True)
+    if stats is not None:
+        stats.engine_at = process_seconds()
     return Staged(engine, mode, targets, names, lengths, ref_bases, None,
                   None)
 
@@ -382,13 +533,13 @@ def feed_paf(engine: Engine, path: str, config: RunConfig,
     pl.close()
 
 
-def stage(config: RunConfig, device, stats: Optional[RunStats] = None,
+def stage(config: RunConfig, device=None, stats: Optional[RunStats] = None,
           share: Optional[Share] = None) -> Staged:
     """:func:`prepare`, then feed every event of every input file into
     the engine; on a rank of a multi-process job, of its ``share`` of the
     files alone, each as the member of the list that it is (the run was
     prepared on the whole list)."""
-    st = prepare(config, device, stats)
+    st = prepare(config, device, stats, share)
     paf = is_paf(config.inputs[0])
     if share is None:
         share = list(enumerate(config.inputs))
@@ -398,7 +549,7 @@ def stage(config: RunConfig, device, stats: Optional[RunStats] = None,
                 feed_paf(st.engine, path, config, st.names)
             elif i == 0:
                 feed(st.engine, path, config, st.names, st.regions,
-                     st.reader)
+                     st.reader, puller=st.puller, stash=st.stash)
             else:
                 header = cheap_header(path)
                 reader = None
@@ -427,6 +578,8 @@ def finalize_and_write(config: RunConfig, st: Staged,
     if hasattr(engine, "keep_state"):
         engine.keep_state = bool(config.site_output) \
             or mode == MODE_WIN_SMALL
+    from pandepth_tpu_torch.sharding.multihost import MultihostCoverageEngine
+
     if isinstance(engine, MultihostCoverageEngine):
         with phase(stats, "exchange"):
             engine.exchange()
@@ -482,8 +635,10 @@ def finalize_and_write(config: RunConfig, st: Staged,
                              tids, engine.dense_depth)
 
 
-def run(config: RunConfig, device, share: Optional[Share] = None) -> int:
-    """The whole run on ``device`` (one device or a sequence of them), of
+def run(config: RunConfig, device=None,
+        share: Optional[Share] = None) -> int:
+    """The whole run on ``device`` (one device or a sequence of them;
+    None: the devices of :func:`pandepth_tpu_torch.boot.start_up`), of
     ``share`` of the input files on a rank of a multi-process job (see
     :func:`stage`); returns the exit code. On a rank, staging that fails
     in any way (a native feed error, any other exception) does not

@@ -12,7 +12,9 @@ with the same seeds, draws and file names as the repo's generators:
   ``bench3gb.py``'s ``.list`` samples (:func:`list_sample_bam`, its
   ``_gen_list_extra_fixture``) and PAF (:func:`paf_file`, its
   ``_write_paf_fixture``), and bench.py's reads unsorted
-  (:func:`unsorted_bam`).
+  (:func:`unsorted_bam`);
+- an indexed BAM deeper than 2^18 at one base (:func:`deep_bam`), where
+  the reference's 18-bit depth cells wrap.
 """
 
 from __future__ import annotations
@@ -838,6 +840,25 @@ def unsorted_bam(bench_dir: str, n_reads: int) -> str:
         _write_genome_bam(bam, _uniform_reads(np.random.RandomState(42),
                                               n_reads, sort=False),
                           make_index=False)
+    return bam
+
+
+DEEP_READS = 270_000
+
+
+def deep_bam(bench_dir: str) -> str:
+    """The 18-bit depth wrap's fixture (quirk Q1): one 400 bp contig
+    ``c1``, DEEP_READS ``20M`` reads at 0-based 100 and five ``50M``
+    reads at 300, sorted and indexed, as ``deep18.bam``; reused when it
+    exists (the Python writer takes ~10 s)."""
+    os.makedirs(bench_dir, exist_ok=True)
+    bam = os.path.join(bench_dir, "deep18.bam")
+    if not os.path.exists(bam):
+        tmp = bam + ".tmp"
+        write_bam(tmp, ["c1"], [400], [(0, 100, 0, 60, "20M")] * DEEP_READS
+                  + [(0, 300, 0, 60, "50M")] * 5)
+        os.replace(tmp + ".bai", bam + ".bai")
+        os.replace(tmp, bam)
     return bam
 
 

@@ -28,12 +28,28 @@ def verbose() -> bool:
     return _VERBOSE
 
 
+def process_seconds() -> float:
+    """Seconds since this process started: its start time in
+    ``/proc/self/stat`` (clock ticks since boot) against
+    ``/proc/uptime``, to a tick (10 ms)."""
+    with open("/proc/self/stat") as fh:
+        start = int(fh.read().rsplit(")", 1)[1].split()[19])
+    with open("/proc/uptime") as fh:
+        up = float(fh.read().split()[0])
+    return up - start / os.sysconf("SC_CLK_TCK")
+
+
 @dataclasses.dataclass
 class RunStats:
     reads_seen: int = 0
     events: int = 0
     phases: Dict[str, float] = dataclasses.field(default_factory=dict)
     t0: float = dataclasses.field(default_factory=time.perf_counter)
+    #: encoded windows pulled before the engine existed (the pre-engine
+    #: stash), and the seconds from the process's start until the engine
+    #: was made
+    stashed: int = 0
+    engine_at: Optional[float] = None
 
     def note_phase(self, name: str, seconds: float) -> None:
         self.phases[name] = self.phases.get(name, 0.0) + seconds
@@ -46,6 +62,9 @@ class RunStats:
             parts.append(f"reads/s={self.reads_seen / wall:.0f}")
         if self.events:
             parts.append(f"events={self.events}")
+        if self.engine_at is not None:
+            parts.append(f"stashed={self.stashed}")
+            parts.append(f"engine_at={self.engine_at:.2f}s")
         for k, v in sorted(self.phases.items()):
             parts.append(f"{k}={v:.2f}s")
         return " ".join(parts)
