@@ -27,20 +27,34 @@ see :func:`worker`.) Phases, one line each; any failure exits non-zero:
             libpancov_io, with zlib, for the host sweep (the oracle)
 4. kernels  every kernel against its plain PyTorch twin on the card,
             array-equal, at the shapes of every main path of phase 6:
+            first sort_pairs (K2's stable sort) on
+            pandepth_tpu_torch/synth.py's sort_edge_events and
+            sort_edge_rows, after holding its tile and scratch to the
+            library's: every tier over its whole range (negative int32
+            keys, uint32 words past 2^31, int64 past 2^32), 0, 1, a tile
+            - 1, a tile, a tile + 1 and a few tiles of events, every
+            position equal, descending and ascending input, an encoded
+            buffer's sentinel tail, a pile-up, keys apart in one byte,
+            the extreme words, 1,000,003 events with 270,000 on one
+            position, and (8, width) row blocks; 50 launches on the tail
+            and the pile-up; then
             the state that pandepth_tpu_torch.run.stage builds from the
             fixture for chr with raw pairs (PANDEPTH_ENC=0: pack_events,
-            sweep_scan, eval_pair, eval_boundaries on 300 chr segments;
-            timed), for bed (the same on the exome BED's staged pairs and
+            sort_pairs, sweep_scan, eval_pair, eval_boundaries on 300 chr
+            segments; timed, sort_pairs beside the library's stable sort
+            and gather, with the peak device memory of each), for bed (the same on the exome BED's staged pairs and
             its 200,000 regions), for the CIGAR feed
             (PANDEPTH_NO_NATIVE=1: sweep_scan, eval_pair, eval_boundaries
             on every batch's extract_events output), and for chr and the
             .list with encoded windows (the card's default: decode_enc on
-            every stacked block, timed, and the whole finalize_encoded),
+            every stacked block, timed, sort_pairs on the one event
+            buffer it fills, timed on chr, and the whole
+            finalize_encoded),
             and for the unsorted BAM (the card's default, whose windows
             the encoder cuts short: all of them staged as raw pairs);
             the sharded engine's 8-row blocks of the chr path (timed) and
-            of the bed path (shard_carry, each row's sweep_scan,
-            eval_pair_rows); eval_boundaries on the lo and hi of every
+            of the bed path (shard_carry, sort_pairs' row form, each row's
+            sweep_scan, eval_pair_rows); eval_boundaries on the lo and hi of every
             counted path's segments (timed on chr and bed for notes);
             extract_events and eval_boundaries on the fixture's first
             2^20-read batch as
@@ -98,10 +112,11 @@ see :func:`worker`.) Phases, one line each; any failure exits non-zero:
             case's lo and hi concatenated; eval_pair_rows
             at segments crossing no row, one, two and every row and
             clips on a range's ends, and over 5,000 rows (more cuts than
-            it stages in shared memory). 50 launches of each of those eight
+            it stages in shared memory). 50 launches of each of those nine
             kernels on its main path's inputs (the chr path's, the 8-row
             chr block's, the step path's first batch; extract_events on
-            both CIGAR batches), every output array-equal to the first
+            both CIGAR batches; sort_pairs on the chr path's events and
+            the 8-row chr block), every output array-equal to the first
             and to the twin (shard_carry with slot 0 of every row
             overwritten before each launch); the device
             time of each (torch.profiler) beside its CUDA-event time and
@@ -126,7 +141,10 @@ see :func:`worker`.) Phases, one line each; any failure exits non-zero:
             CRAM; every table byte-equal to tests/golden/
 6. e2e      the main paths at full size, each with every kernel count set
             to 0 just before it and read just after, and every kernel it
-            runs launched at least once:
+            runs launched at least once; from here to phase 13, in this
+            process and in the workers, a guard fails the smoke if
+            torch.sort, torch.argsort or Tensor.sort meets a CUDA tensor
+            outside a plain twin:
             chr     the port's CLI over the 8M-read fixture with raw pairs
                     (PANDEPTH_ENC=0), twice in this process; wall times,
                     reads/s
@@ -270,34 +288,38 @@ REPLACES = {"pack_events": "pandepth_tpu/device/engine.py:43",
             "decode_enc": "pandepth_tpu/device/sweep.py:205",
             "shard_carry": "pandepth_tpu/sharding/engine.py:81",
             "eval_pair_rows": "pandepth_tpu/sharding/engine.py:73",
-            "bucket_events": "pandepth_tpu/sharding/mesh.py:64"}
+            "bucket_events": "pandepth_tpu/sharding/mesh.py:64",
+            "sort_pairs": "pandepth_tpu/device/sweep.py:49"}
 # what each main path must launch (summed over the ranks of a path run by
 # spawned workers)
-MESH = ("bucket_events", "shard_carry", "sweep_scan", "eval_pair_rows")
-PATHS = {"chr": ("pack_events", "sweep_scan", "eval_pair"),
-         "chr_enc": ("decode_enc", "sweep_scan", "eval_pair"),
-         "cigar": ("extract_events", "sweep_scan", "eval_pair"),
-         "step": ("extract_events", "sweep_scan", "eval_boundaries"),
-         "bed": ("pack_events", "sweep_scan", "eval_pair"),
-         "win": ("decode_enc", "sweep_scan", "eval_pair"),
-         "list": ("decode_enc", "sweep_scan", "eval_pair"),
-         "paf": ("pack_events", "sweep_scan", "eval_pair"),
-         "unsorted": ("pack_events", "sweep_scan", "eval_pair"),
-         "chr_sharded": ("shard_carry", "sweep_scan", "eval_pair_rows"),
-         "bed_sharded": ("shard_carry", "sweep_scan", "eval_pair_rows"),
-         "cli_sharded": ("shard_carry", "sweep_scan", "eval_pair_rows"),
+MESH = ("bucket_events", "shard_carry", "sort_pairs", "sweep_scan",
+        "eval_pair_rows")
+# K2: its sort, then its scans
+K2 = ("sort_pairs", "sweep_scan")
+SHARDED = ("shard_carry",) + K2 + ("eval_pair_rows",)
+PATHS = {"chr": ("pack_events",) + K2 + ("eval_pair",),
+         "chr_enc": ("decode_enc",) + K2 + ("eval_pair",),
+         "cigar": ("extract_events",) + K2 + ("eval_pair",),
+         "step": ("extract_events",) + K2 + ("eval_boundaries",),
+         "bed": ("pack_events",) + K2 + ("eval_pair",),
+         "win": ("decode_enc",) + K2 + ("eval_pair",),
+         "list": ("decode_enc",) + K2 + ("eval_pair",),
+         "paf": ("pack_events",) + K2 + ("eval_pair",),
+         "unsorted": ("pack_events",) + K2 + ("eval_pair",),
+         "chr_sharded": SHARDED, "bed_sharded": SHARDED,
+         "cli_sharded": SHARDED,
          "multiproc": MESH, "multiproc_nccl": MESH,
          "mesh_step": MESH + ("extract_events",),
-         "site": ("decode_enc", "sweep_scan", "eval_pair"),
-         "site_raw": ("pack_events", "sweep_scan", "eval_pair"),
-         "site_sharded": ("shard_carry", "sweep_scan", "eval_pair_rows"),
+         "site": ("decode_enc",) + K2 + ("eval_pair",),
+         "site_raw": ("pack_events",) + K2 + ("eval_pair",),
+         "site_sharded": SHARDED,
          "site_multiproc": MESH,
-         "win6": ("decode_enc", "sweep_scan", "eval_pair"),
-         "daemon": ("decode_enc", "sweep_scan", "eval_pair"),
-         "wrap18_site": ("sweep_scan", "eval_pair"),
-         "wrap18_w100": ("sweep_scan", "eval_pair"),
-         "wrap18_chr": ("sweep_scan", "eval_pair"),
-         "graft": ("extract_events", "sweep_scan", "eval_boundaries")}
+         "win6": ("decode_enc",) + K2 + ("eval_pair",),
+         "daemon": ("decode_enc",) + K2 + ("eval_pair",),
+         "wrap18_site": K2 + ("eval_pair",),
+         "wrap18_w100": K2 + ("eval_pair",),
+         "wrap18_chr": K2 + ("eval_pair",),
+         "graft": ("extract_events",) + K2 + ("eval_boundaries",)}
 N_READS = 8_000_000
 BATCH_READS = 1 << 20   # RunConfig.max_reads_per_batch
 N_BED = 200_000
@@ -307,6 +329,8 @@ SHARD_ROWS = 8          # rows of the sharded runs on the one card
 RANGES = (1, 2, 4, 8)   # bucket_events' ranges on the chr path's events
 WIN6_BP = 100           # -w of the win6 path: ~30M windows of the 3 Gb layout
 DAEMON_RUNS = 3         # chr runs through the daemon: the first spawns it
+SETTLE_READS = 6        # the idle daemon's stat, read a quarter second apart
+DAEMON_SETTLE_S = 20    # idle after the first request before the baseline
 HOST_MIN_FOLDS = 7      # folds of 2^20 pairs the host phase's chr must take
 SPLICED_MIN_FOLDS = 3   # and its spliced BAM (3 segments a read)
 JOB_SECONDS = 300       # each spawned job's limit, all its ranks killed
@@ -376,6 +400,32 @@ def search_loads(n: int, q: int) -> int:
     while (lanes + 1) ** rounds < n + 1:
         rounds += 1
     return rounds + 1
+
+
+def sort_floor_bytes(n: int, word: int, key: int) -> int:
+    """The bytes sort_pairs' own design moves for ``n`` events of
+    ``word``-byte positions and ``key``-byte keys: the histogram's read of
+    the positions, the first pass (positions and deltas in, keys and
+    deltas out), the passes between (keys and deltas in and out) and the
+    last (keys and deltas in, positions and deltas out), a pass a byte of
+    the key."""
+    ends = 2 * n * (word + 4 + key + 4)
+    return n * word + ends + (key - 2) * 2 * n * (key + 4)
+
+
+def peak_bytes(fn) -> int:
+    """The device memory ``fn`` allocates at its peak above what was
+    allocated before it (its outputs included)."""
+    import torch
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    del out
+    return peak
 
 
 def device_ms(fn, iters: int = 10, tries: int = 3):
@@ -685,6 +735,45 @@ class KernelCheck:
             self.bound_ms[name] = bound
         return ms
 
+    def sort_case(self, pos, delta, tier: int, what: str,
+                  timed: bool = False, note: str = ""):
+        """sort_pairs held array-equal to its twin on ``pos``/``delta`` (a
+        (rows, width) block row by row); with ``timed`` also 50 launches
+        of it, then timed for its JSON entry, or with ``note`` for a note:
+        its CUDA-event, device and host time per call, the twin's (the
+        library's stable sort and gather, timed once more for the JSON
+        entry's library_ms), the bound (each word and delta read once and
+        written once), the design's own bytes and the peak device memory
+        of the kernel and of the library's sort. Returns the twin's
+        (pos_s, delta_s)."""
+        from pandepth_tpu_torch.device import kernels, sweep
+
+        kernel = lambda: kernels.sort_pairs(pos, delta, tier)  # noqa: E731
+        twin = lambda: sweep.sort_pairs_reference(pos, delta)  # noqa: E731
+        want = twin()
+        self.compare("sort_pairs", kernel(), want, what)
+        if not (timed or note):
+            return want
+        n, w = pos.numel(), pos.element_size()
+        key = 8 if tier == kernels.TIER_I64 else 4
+        if timed:
+            self.repeat("sort_pairs", kernel, want, what)
+        ms = self.time("sort_pairs", kernel, twin, 2 * n * (w + 4), note)
+        self.device_note("sort_pairs", kernel, note or what, ms)
+        lib_ms, lib_dev = cuda_ms(twin), device_ms(twin)[0]
+        if not note:
+            self.library_ms["sort_pairs"] = lib_ms
+        floor = sort_floor_bytes(n, w, key)
+        self.notes.append(
+            f"sort_pairs on {note or what}: the library's stable sort and "
+            f"gather {lib_ms:.4f} ms (device {lib_dev:.4f} ms); the "
+            f"design's own {floor} bytes ({floor / n:.0f} B an event, "
+            f"{key} passes) take {floor / HBM_BYTES_PER_S * 1e3:.6f} ms at "
+            f"the memory rate; peak device memory: kernel "
+            f"{peak_bytes(kernel)} bytes, library sort and gather "
+            f"{peak_bytes(twin)} bytes")
+        return want
+
     def sweep_case(self, raw_s, raw_e, sentinel: int, lo, hi, min_dep: int,
                    wrap18: bool, what: str, timed: bool = False,
                    pair_note: str = "") -> None:
@@ -711,17 +800,18 @@ class KernelCheck:
     def state_case(self, pos, delta, sentinel: int, lo, hi, min_dep: int,
                    wrap18: bool, what: str, timed: bool = False,
                    pair_note: str = "") -> None:
-        """Events through the library's stable sort, then sweep_scan,
-        eval_pair and eval_boundaries and their twins; with ``timed``
+        """Events through sort_pairs, then sweep_scan, eval_pair and
+        eval_boundaries and their twins; with ``timed`` sort_pairs,
         sweep_scan and eval_pair timed (eval_pair also at 1M-window chunks
         of -w 150 and -w 1500 grids from position 0), with ``pair_note``
         eval_pair timed for a note."""
         import torch
 
         from pandepth_tpu_torch.device import kernels, sweep
+        from pandepth_tpu_torch.device.convert import tier_for_max
 
-        pos_s, order = torch.sort(pos, stable=True)
-        delta_s = delta[order]
+        pos_s, delta_s = self.sort_case(pos, delta, tier_for_max(sentinel),
+                                        what, timed=timed)
         got = kernels.sweep_scan(pos_s, delta_s, min_dep, wrap18, sentinel)
         scan_want = sweep.sweep_scan_reference(pos_s, delta_s, min_dep,
                                                wrap18, sentinel)
@@ -767,9 +857,6 @@ class KernelCheck:
             self.pair_case(state, min_dep, win, win + bp, what,
                            f"a 1M-window chunk of a -w {bp} grid (the first "
                            f"{mb}), {what}")
-        sort_ms = cuda_ms(lambda: torch.sort(pos, stable=True))
-        self.notes.append(f"library stable sort of the native main path's "
-                          f"{pos.shape[0]} events: {sort_ms:.4f} ms")
 
     def extract_case(self, cols, offsets, limits, flags_mask: int,
                      min_mapq: int, sentinel: int, pos_dtype, what: str,
@@ -836,12 +923,19 @@ class KernelCheck:
                 self.device_note("decode_enc", decode, what)
 
     def finalize_enc_case(self, groups, cp, cd, lo, hi, pos_max: int,
-                          min_dep: int, wrap18: bool, what: str) -> None:
-        """The whole finalize_encoded (decode_enc into one buffer, the
-        library sort, sweep_scan, eval_pair) against its twin: all seven
-        outputs."""
+                          min_dep: int, wrap18: bool, what: str,
+                          sort_note: str = "") -> None:
+        """sort_pairs on the one event buffer that finalize_encoded sorts
+        (timed for a note with ``sort_note``), then the whole
+        finalize_encoded (decode_enc into one buffer, sort_pairs,
+        sweep_scan, eval_pair) against its twin: all seven outputs."""
         from pandepth_tpu_torch.device import sweep
+        from pandepth_tpu_torch.device.convert import tier_for_max
 
+        pos, delta = sweep.encoded_events(*groups, cp, cd, pos_max)
+        self.sort_case(pos, delta, tier_for_max(pos_max),
+                       what + ", its sort input", note=sort_note)
+        del pos, delta
         args = (*groups, cp, cd, lo, hi)
         kw = dict(min_dep=min_dep, wrap18=wrap18, pos_max=pos_max)
         self.compare("decode_enc", sweep.finalize_encoded(*args, **kw),
@@ -951,6 +1045,66 @@ def sweep_edge_cases(check: KernelCheck, dev) -> None:
                                      f"{np.dtype(np_dt).name} "
                                      f"pairs={n_pairs} min_dep={min_dep} "
                                      f"wrap18={wrap18}")
+
+
+def sort_edge_cases(check: KernelCheck, dev) -> None:
+    """sort_pairs after holding its tile to synth's and kernels.py's and
+    kernels.sort_plan's scratch to the library's: on
+    ``synth.sort_edge_events`` (the cases tests/test_torch_sort.py holds
+    the twin to JAX on: 0, 1, a tile - 1, a tile, a tile + 1 and a few
+    tiles of events over each tier's whole range, every position equal,
+    descending and ascending input, an encoded buffer's sentinel tail, a
+    pile-up, keys apart in the top or the bottom byte alone, the tier's
+    extreme words), 50 launches on the tail's and the pile-up's inputs;
+    1,000,003 events with 270,000 of them on one position (synth.deep_bam's
+    depth) on every tier; and ``synth.sort_edge_rows``, (8, width) blocks
+    of the sharded engine's shape."""
+    import numpy as np
+    import torch
+
+    from pandepth_tpu_torch import synth
+    from pandepth_tpu_torch.device import kernels
+    from pandepth_tpu_torch.device.convert import positions_to_words, tier_of
+
+    lib = kernels.library()
+    if not lib.pdt_sort_tile() == synth.SORT_TILE == kernels.SORT_TILE:
+        fail("kernels", f"sort_pairs' tile {lib.pdt_sort_tile()} is not "
+                        f"synth's {synth.SORT_TILE} or kernels.py's "
+                        f"{kernels.SORT_TILE}")
+    for tier in (kernels.TIER_I32, kernels.TIER_U32, kernels.TIER_I64):
+        for rows, width in ((1, 1), (1, 4097), (8, (1 << 21) + 1),
+                            (1, 15_199_506)):
+            plan = kernels.sort_plan(tier, rows * width, rows)
+            words = lib.pdt_sort_pairs_scratch(tier, rows, width)
+            if plan["scratch_bytes"] != 8 * words:
+                fail("kernels", f"sort_plan({tier}, {rows} x {width}) "
+                                f"plans {plan['scratch_bytes']} bytes of "
+                                f"scratch, the library takes {8 * words}")
+
+    def on_card(pos, delta, pos_dt):
+        p = torch.from_numpy(positions_to_words(pos.ravel(), pos_dt))
+        return (p.reshape(pos.shape).to(dev),
+                torch.from_numpy(delta).to(dev))
+
+    for name, pos, delta, pos_dt in synth.sort_edge_events(seed=3):
+        p, d = on_card(pos, delta, pos_dt)
+        tier = tier_of(pos_dt)
+        want = check.sort_case(p, d, tier, f"sort edge: {name}")
+        if "pile-up" in name or "tail" in name:
+            check.repeat("sort_pairs",
+                         lambda: kernels.sort_pairs(p, d, tier), want,
+                         f"sort edge: {name}")
+    rng = np.random.RandomState(19)
+    for pos_dt, least, most in synth.SORT_RANGES:
+        pos = rng.randint(least, most, 1_000_003, dtype=np.int64)
+        pos[rng.permutation(pos.shape[0])[:270_000]] = pos[7]
+        delta = np.arange(pos.shape[0], dtype=np.int32)
+        check.sort_case(*on_card(pos, delta, pos_dt), tier_of(pos_dt),
+                        f"{np.dtype(pos_dt).name}: 1,000,003 events, "
+                        f"270,000 on one position")
+    for name, pos, delta, pos_dt in synth.sort_edge_rows(seed=4):
+        check.sort_case(*on_card(pos, delta, pos_dt), tier_of(pos_dt),
+                        f"sort rows: {name}")
 
 
 def search_edge_cases(check: KernelCheck, dev) -> None:
@@ -1152,14 +1306,16 @@ def extract_edge_cases(check: KernelCheck, dev) -> None:
 def shard_case(check: KernelCheck, eng, lo, hi, what: str,
                timed: bool = False):
     """A sharded engine's bucketed rows, block by block, through
-    shard_carry, the library sort and each row's sweep_scan, and
+    shard_carry, sort_pairs' row form and each row's sweep_scan, and
     eval_pair_rows on ``lo``/``hi`` (numpy int64 global bounds), each
-    against its twin; a later block takes the earlier blocks' totals.
-    Returns the (rows, width) of the event block."""
+    against its twin; a later block takes the earlier blocks' totals;
+    with ``timed`` sort_pairs' row form also 50 times and timed for a
+    note. Returns the (rows, width) of the event block."""
     import numpy as np
     import torch
 
     from pandepth_tpu_torch.device import kernels, sweep
+    from pandepth_tpu_torch.device.convert import tier_for_max
     from pandepth_tpu_torch.sharding import steps
 
     pos2d, delta2d = eng._bucketed()
@@ -1173,12 +1329,21 @@ def shard_case(check: KernelCheck, eng, lo, hi, what: str,
         want = steps.shard_carry_reference(rp, rd, blk.bounds, left)
         check.compare("shard_carry", (got, kp, kd), (want, rp, rd), what)
         totals.append(got)
+        tier = tier_for_max(eng.pos_sentinel)
+        ps2, ds2 = check.sort_case(kp, kd, tier, what + ", every row")
+        if timed:
+            check.repeat("sort_pairs",
+                         lambda: kernels.sort_pairs(kp, kd, tier),
+                         (ps2, ds2), what + ", every row")
+            check.sort_case(kp, kd, tier, what,
+                            note=f"{what}, each row on its own")
         state = steps.sort_scan_rows(kp, kd, eng.min_dep, eng.wrap18,
                                      eng.pos_sentinel)
-        ds2 = torch.gather(kd, 1, torch.sort(kp, dim=1, stable=True)[1])
-        rows = [sweep.sweep_scan_reference(state[0][r], ds2[r], eng.min_dep,
+        rows = [sweep.sweep_scan_reference(ps2[r], ds2[r], eng.min_dep,
                                            eng.wrap18, eng.pos_sentinel)
                 for r in range(blk.rows)]
+        check.compare("sort_pairs", state[:1], (ps2,),
+                      what + ", sort_scan_rows")
         check.compare("sweep_scan", state[1:],
                       [torch.stack([x[k] for x in rows]) for k in range(3)],
                       what + ", every row")
@@ -1568,7 +1733,9 @@ def main_path_states(check: KernelCheck, bam: str, bed: str, lst: str,
                                note="" if path == "chr_enc" else what)
             check.finalize_enc_case(groups, cp, cd, q_lo, q_hi,
                                     eng.pos_sentinel, eng.min_dep,
-                                    eng.wrap18, what)
+                                    eng.wrap18, what,
+                                    sort_note=what + ", its sort input"
+                                    if path == "chr_enc" else "")
         shapes[path] = (f"{path} path ({detail}{n_events} events, "
                         f"{int(q_lo.shape[0])} segments, "
                         f"{eng.pos_dtype.__name__} tier)")
@@ -1764,6 +1931,49 @@ def gz_digest(path: str):
     return h.hexdigest(), lines
 
 
+class LibrarySortGuard:
+    """While it is on, every call of torch.sort, torch.argsort,
+    Tensor.sort or Tensor.argsort on a CUDA tensor is recorded in
+    ``hits`` (where it came from), unless a plain twin (a function whose
+    name ends in ``_reference``) made it: on the card the port sorts
+    with its own kernel. The calls still run."""
+
+    def __init__(self):
+        self.hits, self.saved = [], []
+
+    def start(self) -> None:
+        import torch
+
+        for owner, name in ((torch, "sort"), (torch, "argsort"),
+                            (torch.Tensor, "sort"),
+                            (torch.Tensor, "argsort")):
+            real = getattr(owner, name)
+            self.saved.append((owner, name, real))
+            setattr(owner, name, self._guarded(name, real))
+
+    def _guarded(self, name: str, real):
+        import traceback
+
+        import torch
+
+        def guarded(t, *a, **kw):
+            if isinstance(t, torch.Tensor) and t.is_cuda:
+                frames = traceback.extract_stack()[:-1]
+                if not any(f.name.endswith("_reference") for f in frames):
+                    self.hits.append(f"{name} of a {t.dtype} CUDA tensor "
+                                     f"at {frames[-1].filename}:"
+                                     f"{frames[-1].lineno}")
+            return real(t, *a, **kw)
+
+        return guarded
+
+    def stop(self) -> list:
+        for owner, name, real in self.saved:
+            setattr(owner, name, real)
+        self.saved = []
+        return self.hits
+
+
 def counted(kernels, path: str, fn):
     """Run one main path with every kernel count set to 0 just before it;
     fail unless each kernel of the path launched. Returns (result,
@@ -1815,6 +2025,8 @@ def worker(argv) -> int:
         return ex
 
     mesh.bucket_exchange = exchange
+    guard = LibrarySortGuard()
+    guard.start()
     kernels.reset_launches()
     t0 = time.perf_counter()
     fetched = 0
@@ -1848,7 +2060,8 @@ def worker(argv) -> int:
     print("RANK " + json.dumps({
         "rank": rank, "rc": rc, "wall": wall, "launches": kernels.launches,
         "exchange_s": seconds, "exchange_bytes": nbytes,
-        "state_fetch_bytes": fetched}), flush=True)
+        "state_fetch_bytes": fetched, "library_sorts": guard.stop()}),
+        flush=True)
     return rc
 
 
@@ -1902,6 +2115,9 @@ def spawned(path: str, mode: str, world: int, backend: str, args,
     missing = [k for k in PATHS[path] if runs[k] < 1]
     if missing:
         fail("e2e", f"{path}: {missing} not launched on the path: {runs}")
+    sorts = [h for x in ranks for h in x["library_sorts"]]
+    if sorts:
+        fail("e2e", f"{path}: a library sort of a CUDA tensor: {sorts[:5]}")
     return ranks, stats, runs, wall
 
 
@@ -2117,14 +2333,57 @@ def win6_phase(port_main, kernels, bam: str, tmp: str, dev) -> dict:
     return runs
 
 
+def settled_stat(serve, sock: str) -> dict:
+    """The idle daemon's ``stat``, its ``cuda_used`` the least of
+    SETTLE_READS readings a quarter second apart (the greatest as
+    ``peak_used``). The card's used bytes count every process on it, and
+    other processes' contexts come and go on the card for up to half a
+    second about once a minute (``tools/daemon_mem_probe.py --watch``);
+    the daemon, idle between requests, holds in every reading what it
+    keeps. Its allocator and launches must not move meanwhile."""
+    sts = []
+    with env(PANDEPTH_DAEMON_SOCK=sock):
+        for k in range(SETTLE_READS):
+            if k:
+                time.sleep(0.25)
+            sts.append(serve.daemon_stat())
+    own = ("cuda_allocated", "cuda_reserved", "launches")
+    if any(st.get(k) != sts[0].get(k) for st in sts for k in own):
+        fail("daemon", f"the idle daemon's allocator or launches moved "
+                       f"between readings: {sts}")
+    used = [st["cuda_used"] for st in sts]
+    return dict(sts[0], cuda_used=min(used), peak_used=max(used))
+
+
+def settle(serve, sock: str) -> list:
+    """Wait DAEMON_SETTLE_S seconds with the daemon idle after its first
+    request, reading the card's used bytes every half second; returns
+    each step (s, bytes). The daemon's context takes its last 64 KiB up
+    to 13.2 s after its first reply (``tools/daemon_mem_probe.py
+    --pause``), and later runs add nothing: its footprint after the
+    first request is the one it has once idle that long."""
+    steps, t0 = [], time.perf_counter()
+    with env(PANDEPTH_DAEMON_SOCK=sock):
+        last = serve.daemon_stat()["cuda_used"]
+        while time.perf_counter() - t0 < DAEMON_SETTLE_S:
+            time.sleep(0.5)
+            used = serve.daemon_stat()["cuda_used"]
+            if used != last:
+                steps.append((round(time.perf_counter() - t0, 2),
+                              used - last))
+                last = used
+    return steps
+
+
 def daemon_phase(bam: str, tmp: str, want: bytes) -> dict:
     """Three chr runs through ``python -m pandepth_tpu_torch`` with
     ``PANDEPTH_DAEMON=1 PANDEPTH_DAEMON_REQUIRE=1`` (the first spawns the
     daemon, on a socket in the temp directory), beside a fresh
     ``python -m pandepth_tpu_torch.cli`` process and ``PANDEPTH_DAEMON=0
     python -m pandepth_tpu_torch``; every table byte-equal to ``want``;
-    the daemon's launches and device memory after each request, which must
-    not grow after the first; the daemon stopped whatever happens.
+    the daemon's launches and device memory after each request (``settle``
+    after the first, then ``settled_stat``), which must not grow after the
+    first; the daemon stopped whatever happens.
     Returns the launches of the three runs."""
     import shutil
     import signal
@@ -2164,14 +2423,17 @@ def daemon_phase(bam: str, tmp: str, want: bytes) -> dict:
         return None
 
     pid, walls, mem, total, prev = None, [], [], {}, {}
+    peaks, late = [], []
     try:
         cold = process(["pandepth_tpu_torch.cli"], dict(os.environ), "dcold")
         inproc = process(["pandepth_tpu_torch"],
                          dict(denv, PANDEPTH_DAEMON="0"), "d0")
         for k in range(DAEMON_RUNS):
             walls.append(process(["pandepth_tpu_torch"], denv, f"daemon{k}"))
-            with env(PANDEPTH_DAEMON_SOCK=sock):
-                st = serve.daemon_stat()
+            if k == 0:
+                late = settle(serve, sock)
+            st = settled_stat(serve, sock)
+            peaks.append(st["peak_used"])
             pid = st["pid"]
             runs = {n: st["launches"][n] - prev.get(n, 0)
                     for n in st["launches"]}
@@ -2214,8 +2476,12 @@ def daemon_phase(bam: str, tmp: str, want: bytes) -> dict:
                   f"s; every table byte-equal to the in-process run's")
     say("daemon", f"the daemon's device memory after each request (MiB by "
                   f"nvidia-smi, bytes allocated, bytes reserved, the card's "
-                  f"bytes in use by mem_get_info): {mem}; "
-                  f"launches of the {DAEMON_RUNS} runs {total}; stopped")
+                  f"bytes in use by mem_get_info, the least of "
+                  f"{SETTLE_READS} readings; their greatest {peaks}): "
+                  f"{mem}, the baseline read {DAEMON_SETTLE_S} s after "
+                  f"the first request (the card's used bytes stepped "
+                  f"meanwhile (s, bytes): {late}); launches of the "
+                  f"{DAEMON_RUNS} runs {total}; stopped")
     return total
 
 
@@ -2610,6 +2876,7 @@ def main() -> int:
 
         # 4. kernels against their twins
         check = KernelCheck()
+        sort_edge_cases(check, dev)
         sweep_edge_cases(check, dev)
         search_edge_cases(check, dev)
         extract_edge_cases(check, dev)
@@ -2631,8 +2898,8 @@ def main() -> int:
         main_path_cigar(check, fb, dev)
         check.round_notes(load_latency_note(check, dev))
         torch.cuda.synchronize()
-        shapes = {k: states["chr"]
-                  for k in ("pack_events", "sweep_scan", "eval_pair")}
+        shapes = {k: states["chr"] for k in ("pack_events", "sort_pairs",
+                                             "sweep_scan", "eval_pair")}
         shapes["extract_events"] = (f"first batch ({fb.n} reads, {fb.m} "
                                     f"ops, {fb.tier} tier)")
         shapes["eval_boundaries"] = (f"first batch's {2 * fb.m} int64 "
@@ -2665,7 +2932,12 @@ def main() -> int:
                       f"encoded windows, raw pairs and no-native; chr from "
                       f"SAM both ways and CRAM)")
 
-        # 6. the real-size main paths, each counted on its own
+        # 6. the real-size main paths, each counted on its own; from here
+        # to the graft phase no library sort may meet a CUDA tensor
+        # outside a plain twin
+        guard = LibrarySortGuard()
+        guard.start()
+
         def cli(out, *extra, inp=bam, device=dev):
             rc = port_main(["pandepth", "-i", inp, "-o",
                             os.path.join(tmp, out), *extra], device=device)
@@ -2970,11 +3242,12 @@ def main() -> int:
             events = json.load(fh)["traceEvents"]
         names = sorted({e["name"] for e in events
                         if e.get("cat") == "kernel"})
-        if not any("sweep_scan" in n for n in names) or \
+        if not all(any(k in n for n in names)
+                   for k in ("sweep_scan", "sort_pass")) or \
                 table(os.path.join(tmp, "envprof")) != port_tab:
             fail("profile", f"PANDEPTH_PROFILE's trace holds no sweep_scan "
-                            f"kernel (kernels: {names}), or its table "
-                            f"differs")
+                            f"or sort_pass kernel (kernels: {names}), or "
+                            f"its table differs")
         say("profile", f"PANDEPTH_PROFILE: one chr run's trace "
                        f"{os.path.getsize(os.path.join(trace_dir, traces[0]))}"
                        f" bytes, {len(events)} events, kernels "
@@ -2997,6 +3270,12 @@ def main() -> int:
 
         # 13. graft: the twin of __graft_entry__.py
         paths["graft"] = graft_phase(kernels)
+        sorts = guard.stop()
+        if sorts:
+            fail("e2e", f"{len(sorts)} library sorts of CUDA tensors "
+                        f"outside a twin in phases 6-13: {sorts[:5]}")
+        say("e2e", "phases 6-13: no library sort met a CUDA tensor outside "
+                   "a plain twin")
 
         # 14. host: the host engine's fresh processes, fold, split, daemon
         host_phase({"bam": bam, "bed": bed, "lst": lst, "paf": paf,
@@ -3008,7 +3287,8 @@ def main() -> int:
     print(card, flush=True)   # again, beside the results
     # no single PyTorch call computes the other kernels' functions;
     # bucket_events' is the library's stable sort of the destinations,
-    # which computes the order alone
+    # which computes the order alone; sort_pairs' the library's stable
+    # sort and the gather of the deltas
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": SOURCE,
          "replaces": REPLACES[k],

@@ -300,8 +300,8 @@ __host__ __device__ constexpr int padded_size(int n) {
 
 // ---------------------------------------------------------------------
 // K2 sweep_scan — replaces the arithmetic of
-// pandepth_tpu/device/sweep.py:sort_events (the sort itself stays a
-// library sort, as it was an XLA primitive).
+// pandepth_tpu/device/sweep.py:sort_events after its sort (the sort is
+// sort_pairs, below K10).
 // Bound on the H100: memory. Per event it must read delta (4 B) and pos
 // (4-8 B) and write depth (4 B), c_cov and c_sum (8 B each): 32 B per
 // event in the uint32 tier, 486 MB at the chr path's 15.2M events. The
@@ -1265,9 +1265,9 @@ int decode_enc_tier(int tier, int nblocks, const void* const* codes,
 // _sharded_steps (finalize :81, eval_only :101, local_eval :73). The
 // genome axis is cut into ranges, one per row of a (rows, width) event
 // block (slot 0 of each row reserved for the carry event, the rest the
-// range's events, sentinel-padded with delta 0). Each row is sorted (the
-// library sort) and scanned (K2, row by row); shard_carry_kernel and
-// eval_pair_rows_kernel are the rest of it.
+// range's events, sentinel-padded with delta 0). Each row is sorted
+// (sort_pairs' row form) and scanned (K2, row by row); shard_carry_kernel
+// and eval_pair_rows_kernel are the rest of it.
 //
 // shard_carry: the depth carried into each range from the ranges to its
 // left, injected as the row's first event (JAX: all_gather of the
@@ -1948,6 +1948,364 @@ int bucket_events_typed(const W* pos, const int32_t* delta, int64_t n,
 }
 
 // ---------------------------------------------------------------------
+// K2's sort, sort_pairs — replaces the jax.lax.sort_key_val of
+// pandepth_tpu/device/sweep.py:sort_events (:49), and K9's sort of each
+// row of a (rows, width) block (pandepth_tpu/sharding/engine.py:81, the
+// same sort_events row by row). A stable sort of int32 deltas by their
+// positions: equal positions keep their input order, as the sweep
+// state's array equality needs (the carry event in slot 0 of a row sorts
+// first among equal positions, as JAX's concatenation puts it first).
+// Rows are sorted each on its own.
+// Keys: unsigned order equals the tier's order. The int32 tier flips the
+// sign bit of its word (32-bit keys), the uint32 tier takes the low word
+// of its zero-extended int64 carrier (32-bit keys; its high word is zero,
+// device/convert.py), the int64 tier flips the sign bit of its word
+// (64-bit keys). Bound on the H100: memory. The sort must read each
+// position word and delta once and write them once, 24 B an event in the
+// uint32 tier (8 B words, 4 B deltas): 0.109 ms at the raw chr path's
+// 15,199,506 events. No pass can place an event before every event of
+// the row is counted, so the design, a least-significant-digit radix
+// sort on Onesweep's pattern (Adinets and Merrill, NVIDIA 2022), reads
+// the keys once for every digit's histogram and then makes one
+// chained-scan pass a digit of 8 bits: 4 passes on the 32-bit tiers, 8
+// on the int64 tier, launched after one memset of the scratch.
+//   1. sort_hist_kernel: each row's count of every digit value of every
+//      pass in one read of the keys, through shared-memory histograms (a
+//      thread's run of one digit value added at once, a warp's runs of
+//      one value summed first: the encoded feed's dead slots put most of
+//      a tile in one bin), then global atomics.
+//   2. sort_pass_kernel, once a digit, tile ids from the pass's atomic
+//      counter, row-major, so that a tile's predecessors in its row hold
+//      lower ids: each warp ranks each round of its contiguous sub-chunk
+//      by digit (a lane's peers from 8 ballots of the digit's bits, a
+//      count per digit value and warp in shared memory); the tile
+//      publishes each value's count at once in a (tile x value) status
+//      array, one 64-bit word each (the count below bit 32, the flag in
+//      bits 32-33, the pass + 1 above: the status array serves every
+//      pass after one memset, a word of an earlier pass reads as not
+//      published), resolves each value's count in its row's earlier
+//      tiles by a decoupled look-back, a thread a value, and adds the
+//      row's exclusive prefix of that value (from pass 1's histogram,
+//      scanned in each block); the tile stages its events in shared
+//      memory in digit order and writes each value's run contiguously.
+// The output is ordered by digit, then tile, warp, round and lane: input
+// order within a digit, so each pass is stable and so is the sort. The
+// first pass reads the caller's positions and deltas, the last writes
+// the positions in the caller's words and the deltas; between them the
+// events go as (key, delta) through one scratch buffer and the output
+// buffers (the key fits the output's word), so no index array and no
+// gather is left. Per event in the uint32 tier: the histogram reads 8
+// B, the first and the last pass move 20 B each and the two between 16
+// B each: 80 B, the design's own floor (0.363 ms at 15,199,506 events).
+// Tiles of 4,096 events: 256 threads, a thread a digit value in the
+// look-back, 16 rounds of a warp each. The tile size is also
+// pandepth_tpu_torch/synth.py's SORT_TILE and kernels.py's SORT_TILE,
+// which chip_smoke.py holds to the library's.
+constexpr int SORT_RADIX = 256;                       // 8-bit digits
+constexpr int SORT_THREADS = SORT_RADIX;              // a thread a value
+constexpr int SORT_WARPS = SORT_THREADS / 32;
+constexpr int SORT_ROUNDS = 16;                       // per warp
+constexpr int SORT_SUB = 32 * SORT_ROUNDS;            // events per warp
+constexpr int SORT_TILE = SORT_WARPS * SORT_SUB;      // events per block
+constexpr int SORT_MAX_PASSES = 8;
+// Pass blocks an SM, which caps the registers: 3 took 0.924-0.934 ms on
+// the raw chr path's 15,199,506 events, 2 (128 registers allowed) 1.146,
+// 4 (64) 1.182-1.186, and tiles of 2,048 at 4 blocks 1.046 (H100 80GB
+// HBM3 at 700 W, tools/kernel_ab.py, one call).
+constexpr int SORT_MIN_BLOCKS = 3;
+constexpr int SORT_HIST_BLOCKS = 4;     // histogram blocks an SM
+
+template <typename K>
+__device__ __forceinline__ int sort_digit(K key, int shift) {
+    return (int)(key >> shift) & (SORT_RADIX - 1);
+}
+
+// the pass's tag in a status word, above the flag
+__device__ __forceinline__ u64 sort_tag(int pass) {
+    return (u64)(pass + 1) << 34;
+}
+
+// One tile's keys ((K)word ^ flip: the `left` words from src, at most a
+// tile's worth) added to every pass's digit counts in h.
+template <typename K, typename In>
+__device__ __forceinline__ void sort_hist_tile(const In* __restrict__ src,
+                                               K flip, int64_t left,
+                                               int passes, uint32_t* h) {
+    K key[SORT_ROUNDS];
+    int held = 0;   // this thread's events: rounds [0, held)
+#pragma unroll
+    for (int k = 0; k < SORT_ROUNDS; ++k) {   // striped, coalesced
+        const int64_t i = (int64_t)k * SORT_THREADS + threadIdx.x;
+        key[k] = i < left ? (K)src[i] ^ flip : K(0);
+        if (i < left) held = k + 1;
+    }
+    for (int p = 0; p < passes; ++p) {
+        uint32_t* hp = h + p * SORT_RADIX;
+        int cur = -1;
+        uint32_t run = 0;
+#pragma unroll
+        for (int k = 0; k < SORT_ROUNDS; ++k) {
+            if (k < held) {
+                const int d = sort_digit(key[k], 8 * p);
+                if (d != cur) {
+                    if (run) atomicAdd(&hp[cur], run);
+                    cur = d;
+                    run = 0;
+                }
+                ++run;
+            }
+        }
+        // a warp whose runs all hold one value adds them once
+        const unsigned any = __ballot_sync(0xffffffffu, run != 0);
+        if (any) {
+            const int d0 = __shfl_sync(0xffffffffu, cur, __ffs(any) - 1);
+            if (__all_sync(0xffffffffu, run == 0 || cur == d0)) {
+#pragma unroll
+                for (int o = 16; o > 0; o >>= 1)
+                    run += __shfl_xor_sync(0xffffffffu, run, o);
+                if ((threadIdx.x & 31) == 0) atomicAdd(&hp[d0], run);
+            } else if (run) {
+                atomicAdd(&hp[cur], run);
+            }
+        }
+    }
+}
+
+// Every pass's digit counts of row blockIdx.x / blocks_per_row: its
+// tiles blockIdx.x % blocks_per_row, + blocks_per_row, ... (of
+// tiles_per_row) in shared memory, then global atomics once a block;
+// keys are (K)word ^ flip.
+template <typename K, typename In>
+__global__ void __launch_bounds__(SORT_THREADS)
+sort_hist_kernel(const In* __restrict__ in, K flip, int64_t width,
+                 int64_t tiles_per_row, int64_t blocks_per_row, int passes,
+                 uint32_t* __restrict__ hist) {
+    __shared__ uint32_t h[SORT_MAX_PASSES * SORT_RADIX];
+    for (int k = threadIdx.x; k < passes * SORT_RADIX; k += SORT_THREADS)
+        h[k] = 0;
+    __syncthreads();
+    const int64_t row = blockIdx.x / blocks_per_row;
+    const In* src = in + row * width;
+    for (int64_t c = blockIdx.x - row * blocks_per_row; c < tiles_per_row;
+         c += blocks_per_row)
+        sort_hist_tile(src + c * SORT_TILE, flip, width - c * SORT_TILE,
+                       passes, h);
+    __syncthreads();
+    uint32_t* g = hist + row * passes * SORT_RADIX;
+    for (int k = threadIdx.x; k < passes * SORT_RADIX; k += SORT_THREADS)
+        if (h[k]) atomicAdd(&g[k], h[k]);
+}
+
+// the pass's dynamic shared memory: the staged keys, then the staged
+// deltas, each warp's count of each digit value, and each value's tile
+// offset and output base (uint32)
+template <typename K>
+__host__ __device__ constexpr int sort_smem() {
+    return SORT_TILE * (int)sizeof(K) + 4 * SORT_TILE
+           + 4 * (SORT_WARPS * SORT_RADIX + 2 * SORT_RADIX);
+}
+
+// One digit's stable pass over every row: keys (K)in_key ^ flip_in in,
+// (Out)(key ^ flip_out) out.
+template <typename K, typename In, typename Out>
+__global__ void __launch_bounds__(SORT_THREADS, SORT_MIN_BLOCKS)
+sort_pass_kernel(const In* __restrict__ in_key, K flip_in,
+                 const int32_t* __restrict__ in_delta,
+                 Out* __restrict__ out_key, K flip_out,
+                 int32_t* __restrict__ out_delta, int64_t width,
+                 int64_t tiles_per_row, int pass, int passes,
+                 const uint32_t* __restrict__ hist, unsigned* counter,
+                 u64* status) {
+    extern __shared__ __align__(16) unsigned char smem[];
+    K* s_key = reinterpret_cast<K*>(smem);
+    int32_t* s_delta = reinterpret_cast<int32_t*>(s_key + SORT_TILE);
+    uint32_t* slot = reinterpret_cast<uint32_t*>(s_delta + SORT_TILE);
+    uint32_t* toff = slot + SORT_WARPS * SORT_RADIX;
+    uint32_t* base = toff + SORT_RADIX;
+    __shared__ uint32_t warp_tot[32];
+    __shared__ unsigned s_tile;
+    const int t = threadIdx.x;
+    const int lane = t & 31;
+    const int warp = t >> 5;
+    const int shift = 8 * pass;
+    if (t == 0) s_tile = atomicAdd(counter, 1u);
+    for (int k = t; k < SORT_WARPS * SORT_RADIX; k += SORT_THREADS)
+        slot[k] = 0;
+    __syncthreads();
+    const int64_t tile = s_tile;
+    const int64_t row = tile / tiles_per_row;
+    const int64_t chunk = tile - row * tiles_per_row;
+    const int64_t sub = chunk * SORT_TILE + (int64_t)warp * SORT_SUB;
+    const int64_t roff = row * width;
+    uint32_t* mine = slot + warp * SORT_RADIX;
+    K key[SORT_ROUNDS];
+    int32_t dl[SORT_ROUNDS];
+#pragma unroll
+    for (int r = 0; r < SORT_ROUNDS; ++r) {   // each round coalesced
+        const int64_t i = sub + r * 32 + lane;
+        key[r] = i < width ? (K)in_key[roff + i] ^ flip_in : K(0);
+        dl[r] = i < width ? in_delta[roff + i] : 0;
+    }
+    // each event's place among its warp's events of its digit value
+    // (~0: past the row's end); a lane's peers are the lanes that agree
+    // with it on every bit of the value
+    const unsigned below = (1u << lane) - 1u;
+    uint32_t place[SORT_ROUNDS];
+#pragma unroll
+    for (int r = 0; r < SORT_ROUNDS; ++r) {
+        const bool ok = sub + r * 32 + lane < width;
+        const int d = sort_digit(key[r], shift);
+        unsigned peers = __ballot_sync(0xffffffffu, ok);
+#pragma unroll
+        for (int b = 0; b < 8; ++b) {
+            const unsigned bal = __ballot_sync(0xffffffffu, d >> b & 1);
+            peers &= d >> b & 1 ? bal : ~bal;
+        }
+        place[r] = ok ? mine[d] + __popc(peers & below) : ~0u;
+        __syncwarp();
+        if (ok && lane == __ffs(peers) - 1) mine[d] += __popc(peers);
+        __syncwarp();
+    }
+    __syncthreads();
+    // thread d: each warp's first place of value d, the tile's count of
+    // it, published at once (the first tile of a row as its inclusive
+    // prefix), its offset in the tile and its first slot in the row
+    const int d = t;
+    uint32_t c = 0;
+    for (int w = 0; w < SORT_WARPS; ++w) {
+        const uint32_t x = slot[w * SORT_RADIX + d];
+        slot[w * SORT_RADIX + d] = c;
+        c += x;
+    }
+    const u64 tag = sort_tag(pass);
+    st_relaxed64(status + tile * SORT_RADIX + d,
+                 tag | (chunk == 0 ? PK_INC : PK_AGG) | c);
+    uint32_t live, row_total;
+    const uint32_t off = block_exclusive_scan<uint32_t>(c, warp_tot, &live);
+    const uint32_t first = block_exclusive_scan<uint32_t>(
+        hist[(row * passes + pass) * SORT_RADIX + d], warp_tot, &row_total);
+    toff[d] = off;
+    __syncthreads();
+    // staged in digit order while the predecessors finish
+#pragma unroll
+    for (int r = 0; r < SORT_ROUNDS; ++r) {
+        if (place[r] != ~0u) {
+            const int v = sort_digit(key[r], shift);
+            const uint32_t j = toff[v] + mine[v] + place[r];
+            s_key[j] = key[r];
+            s_delta[j] = dl[r];
+        }
+    }
+    // value d's count in the row's earlier tiles: their status words,
+    // from the nearest back to the first that holds an inclusive prefix
+    uint32_t excl = 0;
+    if (chunk > 0) {
+        for (const u64* p = status + (tile - 1) * SORT_RADIX + d;;
+             p -= SORT_RADIX) {
+            u64 w;
+            while (((w = ld_relaxed64(p)) & ~((4ull << 32) - 1)) != tag)
+                __nanosleep(LOOKBACK_SLEEP_NS);
+            excl += (uint32_t)w;
+            if (w & PK_INC) break;
+        }
+        st_relaxed64(status + tile * SORT_RADIX + d, tag | PK_INC
+                     | (u64)(excl + c));
+    }
+    base[d] = first + excl - off;
+    __syncthreads();
+    for (int j = t; j < (int)live; j += SORT_THREADS) {   // coalesced runs
+        const K k = s_key[j];
+        const int64_t to = roff + (uint32_t)(base[sort_digit(k, shift)] + j);
+        out_key[to] = (Out)(k ^ flip_out);
+        out_delta[to] = s_delta[j];
+    }
+}
+
+// The int64 words of sort_pairs' scratch for `rows` rows of `width`
+// events and keys of `key_bytes`: a tile counter a pass, the rows'
+// histograms (uint32 per row, pass and digit value), the (tile x value)
+// status words (zeroed, those three, by one memset of the first
+// *zeroed words), then the buffer between passes: the keys, then the
+// deltas.
+inline int64_t sort_scratch_words(int64_t rows, int64_t width,
+                                  int key_bytes, int64_t* zeroed) {
+    const int passes = key_bytes;
+    const int64_t tiles = rows * ((width + SORT_TILE - 1) / SORT_TILE);
+    const int64_t z = SORT_MAX_PASSES / 2
+                      + rows * passes * SORT_RADIX / 2 + tiles * SORT_RADIX;
+    if (zeroed) *zeroed = z;
+    const int64_t n = rows * width;
+    return z + (n * key_bytes + 7) / 8 + (n * 4 + 7) / 8;
+}
+
+// P the caller's position words, K the keys ((K)word ^ flip).
+template <typename P, typename K>
+int sort_pairs_typed(const P* pos, const int32_t* delta, int64_t rows,
+                     int64_t width, K flip, P* pos_s, int32_t* delta_s,
+                     int64_t* scratch, int64_t scratch_words,
+                     cudaStream_t st) {
+    const int passes = (int)sizeof(K);   // 8-bit digits
+    const int64_t per_row = (width + SORT_TILE - 1) / SORT_TILE;
+    const int64_t n = rows * width;
+    int64_t zeroed;
+    if (sort_scratch_words(rows, width, passes, &zeroed) > scratch_words
+        || rows * per_row > INT32_MAX)
+        return (int)cudaErrorInvalidValue;
+    unsigned* counter = reinterpret_cast<unsigned*>(scratch);
+    uint32_t* hist = reinterpret_cast<uint32_t*>(scratch
+                                                 + SORT_MAX_PASSES / 2);
+    u64* status = reinterpret_cast<u64*>(
+        scratch + SORT_MAX_PASSES / 2 + rows * passes * SORT_RADIX / 2);
+    K* a_key = reinterpret_cast<K*>(scratch + zeroed);
+    int32_t* a_delta = reinterpret_cast<int32_t*>(
+        scratch + zeroed + (n * (int64_t)sizeof(K) + 7) / 8);
+    K* o_key = reinterpret_cast<K*>(pos_s);   // the output's words as keys
+    static std::atomic<u64> first_set{0}, mid_set{0}, last_set{0};
+    cudaError_t err =
+        allow_smem(sort_pass_kernel<K, P, K>, sort_smem<K>(), first_set);
+    if (err == cudaSuccess)
+        err = allow_smem(sort_pass_kernel<K, K, K>, sort_smem<K>(), mid_set);
+    if (err == cudaSuccess)
+        err = allow_smem(sort_pass_kernel<K, K, P>, sort_smem<K>(), last_set);
+    if (err != cudaSuccess) return (int)err;
+    err = cudaMemsetAsync(scratch, 0, 8 * zeroed, st);
+    if (err != cudaSuccess) return (int)err;
+    // the histogram: SORT_HIST_BLOCKS blocks an SM shared among the rows
+    // (at least one a row, at most one a tile), each block adding a share
+    // of its row's tiles
+    int device, sms;
+    err = cudaGetDevice(&device);
+    if (err == cudaSuccess)
+        err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                     device);
+    if (err != cudaSuccess) return (int)err;
+    int64_t hist_per_row = (int64_t)sms * SORT_HIST_BLOCKS / rows;
+    hist_per_row = hist_per_row < 1 ? 1
+                   : hist_per_row > per_row ? per_row : hist_per_row;
+    sort_hist_kernel<K, P>
+        <<<(unsigned int)(rows * hist_per_row), SORT_THREADS, 0, st>>>(
+        pos, flip, width, per_row, hist_per_row, passes, hist);
+    const unsigned int blocks = (unsigned int)(rows * per_row);
+    // the caller's events -> A -> the output -> A ... -> the output (an
+    // even number of passes)
+    sort_pass_kernel<K, P, K><<<blocks, SORT_THREADS, sort_smem<K>(), st>>>(
+        pos, flip, delta, a_key, K(0), a_delta, width, per_row, 0, passes,
+        hist, counter, status);
+    for (int p = 1; p < passes - 1; ++p) {
+        const bool to_out = p & 1;
+        sort_pass_kernel<K, K, K>
+            <<<blocks, SORT_THREADS, sort_smem<K>(), st>>>(
+            to_out ? a_key : o_key, K(0), to_out ? a_delta : delta_s,
+            to_out ? o_key : a_key, K(0), to_out ? delta_s : a_delta, width,
+            per_row, p, passes, hist, counter + p, status);
+    }
+    sort_pass_kernel<K, K, P><<<blocks, SORT_THREADS, sort_smem<K>(), st>>>(
+        a_key, K(0), a_delta, pos_s, flip, delta_s, width, per_row,
+        passes - 1, passes, hist, counter + passes - 1, status);
+    return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------
 // A measurement helper, not the counterpart of a JAX function: one
 // thread follows k links of a chain (i = next[i], from i = 0), each
 // load's address the value of the one before, read past L1 (ld.cg), and
@@ -2353,6 +2711,44 @@ int pdt_bucket_events(int device, int tier, const void* pos,
         return bucket_events_typed<int64_t>(
             (const int64_t*)pos, delta, n, bounds, world, (int64_t*)out_pos,
             out_delta, c, s, scratch, st);
+    return (int)cudaErrorInvalidValue;
+}
+
+// Events per tile of sort_pairs, and the int64 words of scratch it takes
+// for `rows` rows of `width` events of `tier` (-1: no such tier).
+int64_t pdt_sort_tile(void) { return SORT_TILE; }
+int64_t pdt_sort_pairs_scratch(int tier, int64_t rows, int64_t width) {
+    if (tier != TIER_I32 && tier != TIER_U32 && tier != TIER_I64) return -1;
+    return sort_scratch_words(rows, width, tier == TIER_I64 ? 8 : 4, nullptr);
+}
+
+// K2's sort on `rows` rows of `width` events, each row on its own: pos in
+// the tier's words (int32; the uint32 tier's zero-extended int64; int64),
+// int32 deltas; writes each row's positions ascending, stable, into
+// pos_s (the same words) and its deltas in the same order into delta_s.
+// scratch: scratch_words int64 words, at least pdt_sort_pairs_scratch.
+int pdt_sort_pairs(int device, int tier, const void* pos,
+                   const int32_t* delta, int64_t rows, int64_t width,
+                   void* pos_s, int32_t* delta_s, int64_t* scratch,
+                   int64_t scratch_words, void* stream) {
+    cudaError_t err = cudaSetDevice(device);
+    if (err != cudaSuccess) return (int)err;
+    if (rows < 0 || width < 0 || width > INT32_MAX)
+        return (int)cudaErrorInvalidValue;
+    if (rows == 0 || width == 0) return (int)cudaGetLastError();
+    cudaStream_t st = (cudaStream_t)stream;
+    if (tier == TIER_I32)
+        return sort_pairs_typed<int32_t, uint32_t>(
+            (const int32_t*)pos, delta, rows, width, 0x80000000u,
+            (int32_t*)pos_s, delta_s, scratch, scratch_words, st);
+    if (tier == TIER_U32)
+        return sort_pairs_typed<int64_t, uint32_t>(
+            (const int64_t*)pos, delta, rows, width, 0u, (int64_t*)pos_s,
+            delta_s, scratch, scratch_words, st);
+    if (tier == TIER_I64)
+        return sort_pairs_typed<int64_t, u64>(
+            (const int64_t*)pos, delta, rows, width, 1ull << 63,
+            (int64_t*)pos_s, delta_s, scratch, scratch_words, st);
     return (int)cudaErrorInvalidValue;
 }
 

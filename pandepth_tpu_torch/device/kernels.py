@@ -33,13 +33,15 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 # position tiers, as the C interface numbers them
 TIER_I32, TIER_U32, TIER_I64 = 0, 1, 2
+#: events per tile of sort_pairs (SORT_TILE of csrc/sweep_kernels.cu)
+SORT_TILE = 4096
 
 #: launches per kernel since the last :func:`reset_launches`
 launches: Dict[str, int] = {"pack_events": 0, "sweep_scan": 0,
                             "eval_pair": 0, "extract_events": 0,
                             "eval_boundaries": 0, "decode_enc": 0,
                             "shard_carry": 0, "eval_pair_rows": 0,
-                            "bucket_events": 0}
+                            "bucket_events": 0, "sort_pairs": 0}
 #: ptxas's register / shared-memory report from the last build
 build_log: str = ""
 
@@ -147,6 +149,13 @@ def library() -> ctypes.CDLL:
         lib.pdt_bucket_events.argtypes = [ctypes.c_int, ctypes.c_int, vp, vp,
                                           i64, vp, ctypes.c_int, vp, vp, vp,
                                           vp, vp, vp]
+        lib.pdt_sort_tile.restype = i64
+        lib.pdt_sort_tile.argtypes = []
+        lib.pdt_sort_pairs_scratch.restype = i64
+        lib.pdt_sort_pairs_scratch.argtypes = [ctypes.c_int, i64, i64]
+        lib.pdt_sort_pairs.restype = ctypes.c_int
+        lib.pdt_sort_pairs.argtypes = [ctypes.c_int, ctypes.c_int, vp, vp,
+                                       i64, i64, vp, vp, vp, i64, vp]
         _lib = lib
         return lib
 
@@ -603,3 +612,63 @@ def bucket_events(pos: torch.Tensor, delta: torch.Tensor,
     if n:
         launches["bucket_events"] += 1
     return out_pos, out_delta, counts, sums
+
+
+def _key_bytes(tier: int) -> int:
+    """sort_pairs' key bytes in the tier; raises for an unknown tier."""
+    if tier not in (TIER_I32, TIER_U32, TIER_I64):
+        raise ValueError(f"sort_pairs: no position tier {tier}")
+    return 8 if tier == TIER_I64 else 4
+
+
+def sort_plan(tier: int, n: int, rows: int = 1) -> Dict[str, int]:
+    """What ``sort_pairs`` does with ``n`` events in ``rows`` equal rows
+    of the tier: its key bits (32 on the int32 and uint32 tiers, 64 on
+    the int64 tier), its passes (one a digit of 8 bits), its tiles, and
+    the bytes of its scratch: a tile counter a pass, each row's digit
+    counts of every pass, a status word a tile and digit value (the
+    bytes one memset zeroes), then the keys and deltas between passes.
+    Raises for an unknown tier and for a row of 2^31 events or more."""
+    key_bytes = _key_bytes(tier)
+    if rows < 1 or n < 0 or n % rows:
+        raise ValueError(f"sort_pairs: {n} events do not make {rows} rows")
+    width = n // rows
+    if width >= 1 << 31:
+        raise ValueError(f"sort_pairs: a row of {width} events (the kernel "
+                         f"takes fewer than 2^31)")
+    tiles = rows * -(-width // SORT_TILE)
+    zeroed = 4 + rows * key_bytes * 128 + tiles * 256
+    words = zeroed + -(-n * key_bytes // 8) + -(-n * 4 // 8)
+    return {"key_bits": 8 * key_bytes, "passes": key_bytes, "tiles": tiles,
+            "zeroed_bytes": 8 * zeroed, "scratch_bytes": 8 * words}
+
+
+def sort_pairs(pos: torch.Tensor, delta: torch.Tensor,
+               tier: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K2's sort: ``pos`` (the tier's words: int32, the uint32 tier's
+    zero-extended int64, int64) ascending, stable, with ``delta`` (int32)
+    in the same order; a (rows, width) block row by row, each row on its
+    own. Returns (pos_s, delta_s) of the input's shape. One memset and
+    1 + passes launches (:func:`sort_plan`)."""
+    _key_bytes(tier)
+    word = torch.int32 if tier == TIER_I32 else torch.int64
+    if pos.dim() not in (1, 2):
+        raise ValueError(f"sort_pairs: needs (n,) events or (rows, width) "
+                         f"rows, got shape {tuple(pos.shape)}")
+    shape = tuple(pos.shape)
+    _require_rows("sort_pairs", pos, word, shape)
+    _require_rows("sort_pairs", delta, torch.int32, shape)
+    _one_device("sort_pairs", pos, delta)
+    rows, width = (1,) + shape if pos.dim() == 1 else shape
+    n = rows * width
+    plan = sort_plan(tier, n, max(rows, 1))
+    pos_s, delta_s = torch.empty_like(pos), torch.empty_like(delta)
+    if n:
+        scratch = torch.empty(plan["scratch_bytes"] // 8, dtype=torch.int64,
+                              device=pos.device)
+        _check("sort_pairs", _loaded().pdt_sort_pairs(
+            pos.get_device(), tier, _p(pos), _p(delta), rows, width,
+            _p(pos_s), _p(delta_s), _p(scratch), scratch.shape[0],
+            _stream(pos)))
+        launches["sort_pairs"] += 1
+    return pos_s, delta_s

@@ -70,7 +70,8 @@ def pack_events(starts: torch.Tensor, ends: torch.Tensor, sentinel: int):
 
 
 # ---------------------------------------------------------------------
-# K2: pandepth_tpu/device/sweep.py:sort_events
+# K2: pandepth_tpu/device/sweep.py:sort_events, its sort (:49) the
+# sort_pairs kernel and its scans the sweep_scan kernel
 
 def sweep_scan_reference(pos_s: torch.Tensor, delta_s: torch.Tensor,
                          min_dep: int, wrap18: bool, pos_max: int):
@@ -90,11 +91,29 @@ def sweep_scan_reference(pos_s: torch.Tensor, delta_s: torch.Tensor,
     return depth, c_cov, c_sum
 
 
+def sort_pairs_reference(pos: torch.Tensor, delta: torch.Tensor):
+    """The twin of the ``sort_pairs`` kernel: the library's stable sort
+    along the last axis and the gather of the deltas."""
+    pos_s, order = torch.sort(pos, dim=-1, stable=True)
+    return pos_s, torch.gather(delta, -1, order)
+
+
+def sort_pairs(pos: torch.Tensor, delta: torch.Tensor,
+               pos_max: Optional[int] = None):
+    """JAX's ``lax.sort_key_val(pos, delta)``: (pos_s, delta_s), the
+    positions ascending and stable (equal positions keep their input
+    order), the int32 deltas in the same order; each row of a (rows,
+    width) block on its own. ``pos_max`` names the tier, as elsewhere."""
+    if not _use_kernel(pos):
+        return sort_pairs_reference(pos, delta)
+    return kernels.sort_pairs(pos, delta,
+                              tier_for_max(_pos_max(pos, pos_max)))
+
+
 def sort_events_reference(ev_pos: torch.Tensor, ev_delta: torch.Tensor,
                           min_dep: int = 1, wrap18: bool = False,
                           pos_max: Optional[int] = None):
-    pos_s, order = torch.sort(ev_pos, stable=True)
-    delta_s = ev_delta[order]
+    pos_s, delta_s = sort_pairs_reference(ev_pos, ev_delta)
     depth, c_cov, c_sum = sweep_scan_reference(
         pos_s, delta_s, min_dep, wrap18, _pos_max(ev_pos, pos_max))
     return pos_s, depth, c_cov, c_sum, delta_s
@@ -104,14 +123,13 @@ def sort_events(ev_pos: torch.Tensor, ev_delta: torch.Tensor,
                 min_dep: int = 1, wrap18: bool = False,
                 pos_max: Optional[int] = None):
     """Sort events and build the sweep state: (pos_sorted, depth int32,
-    c_cov int64, c_sum int64, delta_sorted int32). The stable library
-    sort stands where JAX used ``lax.sort_key_val``; the scans are the
+    c_cov int64, c_sum int64, delta_sorted int32). The ``sort_pairs``
+    kernel stands where JAX used ``lax.sort_key_val``; the scans are the
     ``sweep_scan`` kernel."""
     if not _use_kernel(ev_pos):
         return sort_events_reference(ev_pos, ev_delta, min_dep, wrap18,
                                      pos_max)
-    pos_s, order = torch.sort(ev_pos, stable=True)
-    delta_s = ev_delta[order]
+    pos_s, delta_s = sort_pairs(ev_pos, ev_delta, pos_max)
     depth, c_cov, c_sum = kernels.sweep_scan(
         pos_s, delta_s, min_dep, wrap18, _pos_max(ev_pos, pos_max))
     return pos_s, depth, c_cov, c_sum, delta_s
@@ -401,7 +419,18 @@ def finalize_encoded(g8, g16, gc8, gc16, raw_pos, raw_delta, seg_lo, seg_hi,
     if not _use_kernel(first):
         return finalize_encoded_reference(g8, g16, gc8, gc16, raw_pos,
                                           raw_delta, seg_lo, seg_hi, **kw)
-    tier = tier_for_max(kw["pos_max"])
+    pos, delta = encoded_events(g8, g16, gc8, gc16, raw_pos, raw_delta,
+                                kw["pos_max"])
+    return finalize_chunked([pos], [delta], seg_lo, seg_hi, **kw)
+
+
+def encoded_events(g8, g16, gc8, gc16, raw_pos, raw_delta, pos_max: int):
+    """The one event buffer (pos, delta) that :func:`finalize_encoded`
+    sorts on the card: the K8 kernel writes every present group at its
+    offset, and the raw chunks are copied in after them."""
+    groups = _present(g8, g16, gc8, gc16)
+    tier = tier_for_max(pos_max)
+    first = groups[0][3] if groups else raw_pos[0]
     n = sum(2 * r * c for r, c in map(_group_rows, groups)) \
         + sum(p.shape[0] for p in raw_pos)
     pos = torch.empty(n, dtype=first.dtype, device=first.device)
@@ -413,4 +442,4 @@ def finalize_encoded(g8, g16, gc8, gc16, raw_pos, raw_delta, seg_lo, seg_hi,
         pos[off:off + p.shape[0]].copy_(p)
         delta[off:off + p.shape[0]].copy_(d)
         off += p.shape[0]
-    return finalize_chunked([pos], [delta], seg_lo, seg_hi, **kw)
+    return pos, delta

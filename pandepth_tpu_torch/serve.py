@@ -268,8 +268,9 @@ class _Server:
 def _usage() -> dict:
     """This process's pid and peak resident memory (MiB); once it ran the
     kernels, their launches so far, and once it has a CUDA context, the
-    bytes its tensors hold and its caching allocator reserves, and the
-    bytes in use on its card (every context's, this one's included)."""
+    bytes its tensors hold and its caching allocator reserves, the bytes
+    in use on its card (every context's, this one's included) and its
+    stack size."""
     import resource
 
     rss = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1024.0
@@ -283,7 +284,22 @@ def _usage() -> dict:
         out["cuda_reserved"] = torch.cuda.memory_reserved()
         free, total = torch.cuda.mem_get_info()
         out["cuda_used"] = total - free
+        out["cuda_stack"] = _stack_limit()
     return out
+
+
+def _stack_limit():
+    """The CUDA context's per-thread stack size in bytes (CUDA grows it,
+    and the local memory it reserves on the card, when a kernel needs
+    more), or None where ``libcuda`` cannot say."""
+    import ctypes
+
+    try:
+        cu = ctypes.CDLL("libcuda.so.1")
+    except OSError:
+        return None
+    v = ctypes.c_size_t()
+    return v.value if cu.cuCtxGetLimit(ctypes.byref(v), 0) == 0 else None
 
 
 def _idle_s() -> float:

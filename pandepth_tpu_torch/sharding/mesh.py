@@ -19,7 +19,7 @@ through three steps:
    JAX's received rows with their padding removed. There is no capacity
    guess and no overflow retry;
 3. :func:`exchange_sorted`: K9 on the one row (the carry of the ranges
-   to the left, the stable library sort, K2), then :func:`state_eval`:
+   to the left, K2's stable sort and scans), then :func:`state_eval`:
    K9's clipped eval and an ``all_reduce`` of (cover, dsum), JAX's
    ``psum``.
 

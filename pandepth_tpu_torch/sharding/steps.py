@@ -7,9 +7,10 @@ The genome axis is cut into ranges; row r holds the events inside
 [bounds[r], bounds[r+1]) in a (rows, width) block whose slot 0 is
 reserved for the row's carry event and whose tail is sentinel padding
 with delta 0. :func:`finalize_rows` writes each row's carry
-(:func:`shard_carry`), sorts every row with the stable library sort,
-scans each (K2, ``sweep_scan``) and evaluates the segments clipped to
-each row's range, summed over the rows (:func:`eval_pair_rows`);
+(:func:`shard_carry`), sorts every row on its own (K2's
+``sort_pairs``), scans each (K2, ``sweep_scan``) and evaluates the
+segments clipped to each row's range, summed over the rows
+(:func:`eval_pair_rows`);
 :func:`eval_pair_rows` alone is ``eval_only`` on the kept state. The
 engine (:mod:`pandepth_tpu_torch.sharding.engine`) adds the rows' sums
 of every device on the first one, JAX's ``psum``.
@@ -105,12 +106,11 @@ def eval_pair_rows(pos_s2: torch.Tensor, depth2: torch.Tensor,
 
 def sort_scan_rows(pos2d: torch.Tensor, delta2d: torch.Tensor, min_dep: int,
                    wrap18: bool, pos_max: int) -> State:
-    """The sweep state of every row: the stable library sort along the
-    rows, then K2's scans row by row (``sweep_scan``, or its twin on the
-    CPU), written into one (rows, width) array each."""
-    pos_s2, order = torch.sort(pos2d, dim=1, stable=True)
-    delta_s2 = torch.gather(delta2d, 1, order)
-    del order
+    """The sweep state of every row: K2's stable sort of each row (the
+    ``sort_pairs`` kernel's row form, or its twin on the CPU), then K2's
+    scans row by row (``sweep_scan``, or its twin), written into one
+    (rows, width) array each."""
+    pos_s2, delta_s2 = sweep.sort_pairs(pos2d, delta2d, pos_max)
     depth2 = torch.empty_like(delta_s2)
     c_cov2 = torch.empty(pos_s2.shape, dtype=torch.int64,
                          device=pos_s2.device)

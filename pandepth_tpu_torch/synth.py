@@ -630,6 +630,107 @@ def bucket_edge_events(seed: int = 0):
 
 
 # ---------------------------------------------------------------------
+# the edges of K2's sort (sort_pairs)
+
+#: events per tile of the sort_pairs kernel (SORT_TILE of
+#: csrc/sweep_kernels.cu; chip_smoke.py holds it to the built library's)
+SORT_TILE = 4096
+
+#: each tier's numpy dtype and the least and the greatest word its keys
+#: take here: the whole int32 range (negative keys too), the whole uint32
+#: range, and int64 words past both ends of 2^32
+SORT_RANGES = ((np.int32, -(1 << 31), (1 << 31) - 1),
+               (np.uint32, 0, (1 << 32) - 1),
+               (np.int64, -(1 << 62), 1 << 62))
+
+
+def sort_edge_events(seed: int = 0):
+    """sort_pairs' edges as (name, pos, delta, pos dtype): int64 values of
+    the tier's words, int32 deltas that tell the events apart (a wrong
+    order among equal positions shows). On every tier: 0, 1, a tile - 1,
+    a tile, a tile + 1 and a few tiles of events drawn over the tier's
+    whole range with duplicates; every position equal; positions
+    descending and ascending; an encoded buffer's tail (two thirds of
+    the events at the tier's max with delta 0, so most tiles hold one
+    digit value); a pile-up (three tiles of events on one position
+    amid others); positions that differ only in the top or only in the
+    bottom byte; the tier's least and greatest words."""
+    rng = np.random.RandomState(seed)
+    t = SORT_TILE
+    cases = []
+    for pos_dt, least, most in SORT_RANGES:
+        tier = np.dtype(pos_dt).name
+
+        def draw(n):
+            pos = rng.randint(least, most, n, dtype=np.int64)
+            pos[:n // 5] = pos[n // 5 + 1:2 * (n // 5) + 1]   # duplicates
+            return pos
+
+        def tags(n):
+            return rng.randint(-(1 << 31), (1 << 31) - 1, n, dtype=np.int64
+                               ).astype(np.int32)
+
+        for n in (0, 1, t - 1, t, t + 1, 3 * t + 7):
+            cases.append((f"{tier} {n} events", draw(n), tags(n), pos_dt))
+        n = 2 * t + 3
+        same = np.full(n, rng.randint(least, most, dtype=np.int64))
+        cases.append((f"{tier} all {n} positions equal", same,
+                      np.arange(n, dtype=np.int32), pos_dt))
+        pos = np.sort(draw(n))
+        cases.append((f"{tier} descending", pos[::-1].copy(), tags(n),
+                      pos_dt))
+        cases.append((f"{tier} ascending", pos, tags(n), pos_dt))
+        pos, delta = draw(3 * t), tags(3 * t)
+        pos[t:], delta[t:] = most, 0
+        cases.append((f"{tier} an encoded buffer's sentinel tail", pos,
+                      delta, pos_dt))
+        pos = draw(5 * t)
+        pile = rng.permutation(5 * t)[:3 * t]
+        pos[pile] = pos[0]
+        cases.append((f"{tier} a pile-up of {3 * t} events", pos,
+                      np.arange(5 * t, dtype=np.int32), pos_dt))
+        base = rng.randint(least // 2, most // 2, dtype=np.int64) & ~0xFF
+        top = 1 << (8 * np.dtype(pos_dt).itemsize - 8)
+        for what, step in (("top", top), ("bottom", 1)):
+            k = rng.randint(0, 100 if step > 1 else 256, t + 9)
+            cases.append((f"{tier} positions apart only in the {what} byte",
+                          (least if step > 1 else base) + k * step,
+                          tags(t + 9), pos_dt))
+        ends = np.array([most, least, most, least + 1, most - 1, least],
+                        np.int64)
+        cases.append((f"{tier} the least and greatest words", ends,
+                      np.arange(6, dtype=np.int32), pos_dt))
+    return cases
+
+
+def sort_edge_rows(seed: int = 0):
+    """sort_pairs' row form as (name, pos2d, delta2d, pos dtype): on
+    every tier an (8, width) block whose slot 0 is the row's range start
+    and whose rows end in sentinel padding (delta 0), as the sharded
+    engine's rows are, of widths 1, a tile + 1 and three tiles + 5; an
+    empty row; a row whose events all sit on its range start."""
+    rng = np.random.RandomState(seed)
+    cases = []
+    for pos_dt, span in TIER_SPANS:
+        tier = np.dtype(pos_dt).name
+        sentinel = int(np.iinfo(pos_dt).max)
+        cuts = np.linspace(0, span, 9).astype(np.int64)
+        for width in (1, SORT_TILE + 1, 3 * SORT_TILE + 5):
+            pos = np.full((8, width), sentinel, np.int64)
+            delta = np.zeros((8, width), np.int32)
+            for r in range(8):
+                live = (width * (r + 1)) // 9 if r != 3 else 0
+                pos[r, 1:1 + live] = rng.randint(cuts[r], cuts[r + 1], live)
+                delta[r, 1:1 + live] = rng.choice([-1, 1, 2], live)
+                if r == 5:
+                    pos[r, 1:1 + live] = cuts[r]
+                pos[r, 0] = cuts[r]
+                delta[r, 0] = rng.randint(0, 1 << 20)
+            cases.append((f"{tier} (8, {width}) rows", pos, delta, pos_dt))
+    return cases
+
+
+# ---------------------------------------------------------------------
 # the golden fixtures (tests/fixtures.py)
 
 CONTIGS = [("chr1", 5000), ("chr2", 3200), ("ctgM", 700)]

@@ -374,7 +374,7 @@ def test_device_pos_dtype_tiers():
 
 @pytest.mark.parametrize("fn", ["pack_events", "sort_events", "eval_pair",
                                 "extract_events", "eval_boundaries",
-                                "add_batch"])
+                                "add_batch", "sort_pairs"])
 def test_cuda_branch_raises_instead_of_falling_back(monkeypatch, fn):
     """With the dispatch predicate saying "CUDA", a CPU tensor reaches the
     kernel wrapper, which refuses it: no plain fallback."""
@@ -395,7 +395,8 @@ def test_cuda_branch_raises_instead_of_falling_back(monkeypatch, fn):
                  p, p, p, p, p, p, p, c, c, 1796, -1),
              "eval_boundaries": lambda: sweep.eval_boundaries(p, d, c, c,
                                                               1, p),
-             "add_batch": lambda: eng.add_batch(batch)}
+             "add_batch": lambda: eng.add_batch(batch),
+             "sort_pairs": lambda: sweep.sort_pairs(p, d)}
     with pytest.raises(ValueError, match="needs a CUDA tensor"):
         calls[fn]()
     assert not any(kernels.launches.values())

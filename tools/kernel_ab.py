@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Time the port's redesigned kernels (K2 ``sweep_scan``, K8
+"""Time the port's redesigned kernels and K2's sort (K2 ``sort_pairs``
+and ``sweep_scan``, K8
 ``decode_enc``, K6 ``extract_events``, K10 ``bucket_events``, K3
 ``eval_pair``, K5 ``eval_boundaries``, K9's ``eval_pair_rows`` and
 ``shard_carry``) at the main paths' shapes, on one NVIDIA GPU, for the
@@ -25,6 +26,16 @@ the same for every root:
 - sweep_scan: 15,199,506 sorted uint32-tier events (the chr fixture's
   count; int64 words, positions below 3e9, deltas of +-1), min_dep 1, no
   wrap18;
+- sort_pairs: 15,199,506 uint32-tier events as the raw chr path stages
+  them (7,599,753 sorted 150 bp reads' starts, then their ends, int64
+  words; ``sort_pairs_raw``) and the same with their last two thirds at
+  the tier's sentinel with delta 0, as an encoded buffer's dead slots
+  (``sort_pairs_tail``); beside each the library's stable sort and the
+  gather of the deltas (``library``), the peak device memory of both,
+  and the whole ``sweep.finalize_chunked`` (sort, scans, K3 at the chr
+  path's 300 segments) with its peak device memory (``finalize``). On a
+  root whose port has no ``sort_pairs`` kernel (before it was written)
+  the library and the finalize alone;
 - decode_enc: the encoded chr path's const u16 group, blocks of 8 and 6
   windows of 2^19 slots with 8,192 escape entries each (three used),
   through ``sweep.decode_const_group`` as ``chip_smoke.py`` times it;
@@ -88,7 +99,7 @@ import sys
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, HERE)
 from chip_smoke import (bucket_defined, cuda_ms, device_ms,  # noqa: E402
-                        host_ms)
+                        host_ms, peak_bytes)
 
 sys.path.remove(HERE)
 
@@ -108,6 +119,49 @@ def sweep_inputs(dev):
     delta = (torch.randint(0, 2, (N_EVENTS,), generator=g, device=dev,
                            dtype=torch.int32) * 2 - 1)
     return pos_s, delta
+
+
+def sort_inputs(dev):
+    """The raw chr path's 15,199,506 events (zero-extended int64 words of
+    the uint32 tier), and the same with their last two thirds dead: the
+    sentinel, delta 0."""
+    import torch
+
+    lay, words, delta = bucket_inputs(dev)
+    raw = words.to(torch.int64) & U32_MAX
+    tail, dead = raw.clone(), delta.clone()
+    tail[N_EVENTS // 3:], dead[N_EVENTS // 3:] = U32_MAX, 0
+    return lay, (("sort_pairs_raw", raw, delta), ("sort_pairs_tail", tail,
+                                                  dead))
+
+
+def sort_entry(kernels, sweep, lay, pos, delta, iters: int) -> dict:
+    """sort_pairs against its twin and its times, where the port has the
+    kernel; the library's stable sort and gather; the finalize."""
+    import torch
+
+    def library():
+        pos_s, order = torch.sort(pos, stable=True)
+        return pos_s, delta[order]
+
+    lo, hi = chr_segments(lay, pos.device)
+
+    def finalize():
+        return sweep.finalize_chunked([pos], [delta], lo, hi,
+                                      pos_max=U32_MAX)
+
+    out = {"events": pos.numel(), "library": yardstick(library, iters),
+           "library_peak_bytes": peak_bytes(library),
+           "finalize": yardstick(finalize, iters),
+           "finalize_peak_bytes": peak_bytes(finalize)}
+    if hasattr(kernels, "sort_pairs"):
+        kernel = lambda: kernels.sort_pairs(pos, delta,  # noqa: E731
+                                            kernels.TIER_U32)
+        out.update(peak_bytes=peak_bytes(kernel),
+                   **timed(kernel, sweep.sort_pairs_reference(pos, delta)
+                           if hasattr(sweep, "sort_pairs_reference")
+                           else library(), iters))
+    return out
 
 
 def decode_group(dev):
@@ -403,6 +457,13 @@ def main() -> int:
             want, args.iters)}
         del pos_s, delta, want
 
+    if wanted("sort_pairs"):
+        lay, inputs = sort_inputs(dev)
+        for name, pos, delta in inputs:
+            out[name] = sort_entry(kernels, sweep, lay, pos, delta,
+                                   args.iters)
+        del inputs, pos, delta
+
     if wanted("decode_enc"):
         grp = decode_group(dev)
         want = sweep.decode_const_group_reference(*grp, pos_max=U32_MAX)
@@ -516,7 +577,7 @@ def main() -> int:
                     exist_ok=True)
         with open(args.out, "a") as fh:
             fh.write(line + "\n")
-    return 0 if all(v["equal_to_twin"] for v in out.values()
+    return 0 if all(v.get("equal_to_twin", True) for v in out.values()
                     if isinstance(v, dict)) else 1
 
 
