@@ -51,19 +51,25 @@ def _init_and_touch() -> list:
     (every visible card, or an error when there is none); and
     unless every device is the CPU, the CUDA context of the first card
     (one small allocation) and the kernel library (built with nvcc at its
-    first use)."""
-    import torch
+    first use). The three are the run's spans ``start_up.torch``,
+    ``start_up.cuda`` and ``start_up.kernels``."""
+    from pandepth_tpu_torch.utils.log import span
 
-    from pandepth_tpu_torch.cli import resolve_devices
+    with span("start_up.torch"):
+        import torch
 
-    devs = resolve_devices(None)
+        from pandepth_tpu_torch.cli import resolve_devices
+
+        devs = resolve_devices(None)
     cuda = [d for d in devs if d.type == "cuda"]
     if cuda:
-        from pandepth_tpu_torch.device import kernels
+        with span("start_up.cuda"):
+            torch.cuda.init()
+            torch.empty(1, device=cuda[0])
+        with span("start_up.kernels"):
+            from pandepth_tpu_torch.device import kernels
 
-        torch.cuda.init()
-        torch.empty(1, device=cuda[0])
-        kernels.library()
+            kernels.library()
     return devs
 
 
@@ -85,6 +91,17 @@ def started() -> bool:
     """:func:`start_up` has succeeded in this process: a run has no
     start-up left to overlap with its feed."""
     return _started
+
+
+def process_seconds() -> float:
+    """Seconds since this process started: its start time in
+    ``/proc/self/stat`` (clock ticks since boot) against
+    ``/proc/uptime``, to a tick (10 ms)."""
+    with open("/proc/self/stat") as fh:
+        start = int(fh.read().rsplit(")", 1)[1].split()[19])
+    with open("/proc/uptime") as fh:
+        up = float(fh.read().split()[0])
+    return up - start / os.sysconf("SC_CLK_TCK")
 
 
 def multihost_wanted() -> bool:

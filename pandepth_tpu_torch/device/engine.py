@@ -56,6 +56,7 @@ from pandepth_tpu_torch.device.convert import (code_words,
                                               positions_to_words)
 from pandepth_tpu_torch.device.events import extract_events
 from pandepth_tpu_torch.feed import enc_caps
+from pandepth_tpu_torch.utils.log import span
 
 
 #: the encoded-window code groups, in finalize_encoded's order: mixed
@@ -185,18 +186,20 @@ class CoverageEngine:
         return dev[:m], dev[m:]
 
     def _upload(self, a: np.ndarray) -> torch.Tensor:
-        """One host->device copy, counted in ``h2d_bytes``. The copy is from
-        pageable memory, so it has left ``a`` when this returns."""
+        """One host->device copy, counted in ``h2d_bytes`` and timed as the
+        run's ``h2d`` span. The copy is from pageable memory, so it has
+        left ``a`` when this returns."""
         self.h2d_bytes += a.nbytes
         self.h2d_copies += 1
-        if not self.time_copies:
-            return torch.from_numpy(a).to(self.device)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = torch.from_numpy(a).to(self.device)
-        torch.cuda.synchronize()
-        self.h2d_seconds += time.perf_counter() - t0
-        return out
+        with span("h2d"):
+            if not self.time_copies:
+                return torch.from_numpy(a).to(self.device)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = torch.from_numpy(a).to(self.device)
+            torch.cuda.synchronize()
+            self.h2d_seconds += time.perf_counter() - t0
+            return out
 
     def _flush_stage(self) -> None:
         raw = self.upload_staged()
@@ -238,20 +241,25 @@ class CoverageEngine:
         others, one whose lengths are all equal and unescaped goes to a
         const-length group, whose length plane never crosses to the
         device; the code dtype picks u8 or u16. Every enc_block windows of
-        a group go up as one block."""
+        a group go up as one block. This host work is the run's
+        ``feed.stage`` span; the raw staging and the copies are not."""
         if dd.shape[0] != self.enc_cap:
             raise ValueError(f"encoded window of {dd.shape[0]} slots, the "
                              f"engine's enc_cap is {self.enc_cap}")
         if 2 * n < self.enc_cap:
             self.n_windows["raw"] += 1
-            self.add_start_end(*decode_enc_host(dd, ll, excd, excl, base, n))
+            with span("feed.stage"):
+                pairs = decode_enc_host(dd, ll, excd, excl, base, n)
+            self.add_start_end(*pairs)
             return
-        esc = int(np.iinfo(dd.dtype).max)
-        ulen = int(ll[0])
-        const = ulen != esc and not np.any(ll[:n] != ulen)
-        g = ("c" if const else "") + ("8" if dd.dtype == np.uint8 else "16")
-        self._pend[g].append((dd, excd, int(base), ulen, int(n)) if const
-                             else (dd, ll, excd, excl, int(base)))
+        with span("feed.stage"):
+            esc = int(np.iinfo(dd.dtype).max)
+            ulen = int(ll[0])
+            const = ulen != esc and not np.any(ll[:n] != ulen)
+            g = ("c" if const else "") + \
+                ("8" if dd.dtype == np.uint8 else "16")
+            self._pend[g].append((dd, excd, int(base), ulen, int(n)) if const
+                                 else (dd, ll, excd, excl, int(base)))
         self.n_windows[g] += 1
         self._state = None
         if len(self._pend[g]) >= self.enc_block:
@@ -260,10 +268,28 @@ class CoverageEngine:
     def _flush_block(self, g: str) -> None:
         """Stack group ``g``'s pending windows (at most enc_block; fewer
         for the last block) with their escape-slot lists into one host
-        buffer, and copy it to the device in one copy."""
+        buffer (the run's ``feed.stage`` span), and copy it to the device
+        in one copy."""
         pend = self._pend[g]
         if not pend:
             return
+        with span("feed.stage"):
+            buf, parts, sizes = self._stack_block(g)
+        dev, o = self._upload(buf), 0
+        block = {}
+        for (name, dt, shape), size in zip(parts, sizes):
+            block[name] = dev[o:o + size].view(_TORCH[np.dtype(dt)]).view(
+                shape)
+            o += size
+        self._enc[g].append(tuple(block[name] for name in (
+            "codes", "excs", "slots", "bases",
+            *(("lens", "ns") if g.startswith("c") else ()))))
+        pend.clear()
+
+    def _stack_block(self, g: str):
+        """Group ``g``'s pending windows stacked into one host buffer:
+        (buffer, [(name, dtype, shape)], [bytes]) of its parts."""
+        pend = self._pend[g]
         k, cap, ce = len(pend), self.enc_cap, self.enc_exc
         const = g.startswith("c")
         planes = () if const else (2,)
@@ -303,16 +329,7 @@ class CoverageEngine:
             bases = [w[4] for w in pend]
         host["bases"][:] = positions_to_words(np.array(bases, np.int64),
                                               self.pos_dtype)
-        dev, o = self._upload(buf), 0
-        block = {}
-        for (name, dt, shape), size in zip(parts, sizes):
-            block[name] = dev[o:o + size].view(_TORCH[np.dtype(dt)]).view(
-                shape)
-            o += size
-        self._enc[g].append(tuple(block[name] for name in (
-            "codes", "excs", "slots", "bases",
-            *(("lens", "ns") if const else ()))))
-        pend.clear()
+        return buf, parts, sizes
 
     @property
     def _has_enc(self) -> bool:

@@ -20,6 +20,7 @@ import numpy as np
 from pandepth_tpu_torch.config import RunConfig
 from pandepth_tpu_torch.io.bam import BamHeader, BamReader
 from pandepth_tpu_torch.io.sam_text import SamReader
+from pandepth_tpu_torch.utils.log import note, span
 
 
 def _strip_gz(path: str) -> str:
@@ -162,8 +163,10 @@ class EncPuller:
         self.eof = False
 
     def next(self):
-        """One (n, dd, ll, excd, excl, base) window, or None at EOF."""
-        win = self._take(self.cap, self.exc)
+        """One (n, dd, ll, excd, excl, base) window, or None at EOF; the
+        pull is the run's ``feed.take`` span."""
+        with span("feed.take"):
+            win = self._take(self.cap, self.exc)
         if win is None:
             self.eof = True
             return None
@@ -199,7 +202,9 @@ def feed_stream(engine, r, puller: Optional[EncPuller] = None,
     goes on; an engine without encoded windows then decodes them and the
     rest of the stream on the host, since mixing ``take_enc_acc`` with
     ``take32`` on one stream would lose the encoder's accumulated
-    pairs."""
+    pairs. Each pull of a window is the run's ``feed.take`` span, and the
+    seconds the pulls blocked on the stream's producer (its counter, read
+    as the stream closes) are its ``feed.wait``."""
     if getattr(engine, "wants_encoded_windows", False) and \
             hasattr(r, "take_enc_acc"):
         p = puller if puller is not None else \
@@ -213,17 +218,22 @@ def feed_stream(engine, r, puller: Optional[EncPuller] = None,
             engine.add_start_end(*decode_enc_host(*win[1:], win[0]))
     else:
         while True:
-            n = r.wait()
-            if n < 0:
-                break
+            with span("feed.take"):
+                n = r.wait()
+                if n < 0:
+                    break
+                if engine.pos_bits32:
+                    s, e = r.take32(max(n, 1), engine.pos_sentinel32)
+                else:
+                    s, e = r.take64(n)
             if engine.pos_bits32:
-                s32, e32 = r.take32(max(n, 1), engine.pos_sentinel32)
-                engine.add_padded_events(s32.view(engine.pos_dtype),
-                                         e32.view(engine.pos_dtype))
+                engine.add_padded_events(s.view(engine.pos_dtype),
+                                         e.view(engine.pos_dtype))
             else:
-                s, e = r.take64(n)
                 engine.add_start_end(s, e)
     engine.n_reads_seen += r.n_records
+    if hasattr(r, "wait_seconds"):  # the JAX package's stream has none
+        note("feed.wait", r.wait_seconds())
     r.close()
 
 

@@ -174,6 +174,7 @@ def load_library() -> Optional[ctypes.CDLL]:
             ("pancov_stream_close", None, [ctypes.c_void_p]),
             ("pancov_stream_win_remaining", ctypes.c_int64,
              [ctypes.c_void_p]),
+            ("pancov_stream_wait_ns", ctypes.c_int64, [ctypes.c_void_p]),
         ]:
             fn = getattr(lib, name)
             fn.restype = res
@@ -812,6 +813,12 @@ class NativeBamStream:
     @property
     def n_records(self) -> int:
         return int(self._lib.pancov_stream_n_records(self._h))
+
+    def wait_seconds(self) -> float:
+        """Seconds the consumer blocked on the producer's queue (in
+        :meth:`wait` and the ``take_enc_acc`` pulls) since the last call;
+        the count starts anew."""
+        return int(self._lib.pancov_stream_wait_ns(self._h)) * 1e-9
 
     def progress(self):
         """(fraction consumed, event pairs produced) of the PRODUCER

@@ -1280,6 +1280,9 @@ struct StreamBam {
   std::atomic<long long> comp_consumed{0};
   long long comp_total = 0;
   std::atomic<long long> pairs_produced{0};  // event pairs handed off
+  // nanoseconds the consumer blocked on the queue (wait_window; read and
+  // restarted by pancov_stream_wait_ns); guarded by mu
+  int64_t wait_ns = 0;
 
   ~StreamBam() {
     {
@@ -1289,6 +1292,14 @@ struct StreamBam {
     cv.notify_all();
     if (producer.joinable()) producer.join();
     if (f) std::fclose(f);
+  }
+
+  // the consumer's wait, under lk, for a window or the stream's end
+  void wait_window(std::unique_lock<std::mutex>& lk) {
+    auto t0 = std::chrono::steady_clock::now();
+    cv.wait(lk, [&] { return !q.empty() || done; });
+    wait_ns += std::chrono::duration_cast<std::chrono::nanoseconds>(
+                   std::chrono::steady_clock::now() - t0).count();
   }
 
   void fail(const char* msg) {
@@ -1792,7 +1803,7 @@ int64_t pancov_stream_wait(void* h) {
   auto* sb = (StreamBam*)h;
   std::unique_lock<std::mutex> lk(sb->mu);
   if (sb->have_cur) return (int64_t)sb->cur.es.size();
-  sb->cv.wait(lk, [&] { return !sb->q.empty() || sb->done; });
+  sb->wait_window(lk);
   if (sb->q.empty()) return sb->error ? -2 : -1;
   sb->cur = std::move(sb->q.front());
   sb->q.pop_front();
@@ -1957,7 +1968,7 @@ int64_t take_enc_acc_impl(StreamBam* sb, T* dd, T* ll,
     {
       std::unique_lock<std::mutex> lk(sb->mu);
       if (!sb->have_cur) {
-        sb->cv.wait(lk, [&] { return !sb->q.empty() || sb->done; });
+        sb->wait_window(lk);
         if (sb->q.empty()) {
           if (sb->error && n == 0) return -2;
           break;  // EOF (or error after partial data: surface it on
@@ -2045,6 +2056,17 @@ int64_t pancov_stream_take_enc_acc16(void* h, uint16_t* d16,
   return take_enc_acc_impl<uint16_t>((StreamBam*)h, d16, l16, excd,
                                      excl, cap, exc_cap, base_out,
                                      n_excd_out, n_excl_out);
+}
+
+// nanoseconds the consumer blocked on the producer's queue (in
+// pancov_stream_wait and the take_enc_acc functions) since the last call;
+// the count starts anew
+int64_t pancov_stream_wait_ns(void* h) {
+  auto* sb = (StreamBam*)h;
+  std::lock_guard<std::mutex> lk(sb->mu);
+  int64_t ns = sb->wait_ns;
+  sb->wait_ns = 0;
+  return ns;
 }
 
 int64_t pancov_stream_n_records(void* h) {
@@ -3647,16 +3669,6 @@ int64_t pancov_host_finalize(
   if (n_chunks < 0 || nq < 0 || n_extra < 0) return -1;
   if (nthreads < 1) nthreads = 1;
 
-  const bool fin_dbg = std::getenv("PANCOV_FIN_DEBUG") != nullptr;
-  auto tick = std::chrono::steady_clock::now();
-  auto lap = [&](const char* what) {
-    if (!fin_dbg) return;
-    auto now = std::chrono::steady_clock::now();
-    std::fprintf(stderr, "[fin] %s %.3fs\n", what,
-                 std::chrono::duration<double>(now - tick).count());
-    tick = now;
-  };
-
   // Fused gather + MSD scatter: one histogram pass over the staged
   // chunks (live events only, high 16 bits of the position), then one
   // scatter straight into the 65536 contiguous regions of `ev` — the
@@ -3762,10 +3774,8 @@ int64_t pancov_host_finalize(
       }
     }
   });
-  lap("gather+msd");
 
   regions_lsd(ev, region, nthreads);
-  lap("regions_lsd");
 
   // boundaries sorted by value (stable order irrelevant: Q(x) only
   // depends on x)
@@ -3802,7 +3812,6 @@ int64_t pancov_host_finalize(
     out_cover[j] = q_cov[(size_t)(nq + j)] - q_cov[(size_t)j];
     out_dsum[j] = q_sum[(size_t)(nq + j)] - q_sum[(size_t)j];
   }
-  lap("sweep+eval");
 
   if (!keep_state) return 0;
   int64_t d2 = 0;

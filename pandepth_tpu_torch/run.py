@@ -43,7 +43,8 @@ from typing import (TYPE_CHECKING, Callable, Dict, Iterator, List,
 import numpy as np
 
 from pandepth_tpu_torch import boot
-from pandepth_tpu_torch.boot import multihost_wanted, want_host_finalize
+from pandepth_tpu_torch.boot import (multihost_wanted, process_seconds,
+                                     want_host_finalize)
 from pandepth_tpu_torch.config import (MODE_CHR, MODE_WIN_BIG,
                                        MODE_WIN_SMALL, RunConfig)
 from pandepth_tpu_torch.device.layout import GenomeLayout
@@ -67,8 +68,8 @@ from pandepth_tpu_torch.stats.tables import (aggregate_genes,
 from pandepth_tpu_torch.targets.model import TargetSet
 from pandepth_tpu_torch.targets.parse import parse_targets
 from pandepth_tpu_torch.targets.windows import synthesize_default_targets
-from pandepth_tpu_torch.utils.log import (RunStats, maybe_profile, phase,
-                                          process_seconds, set_verbose)
+from pandepth_tpu_torch.utils.log import (RunStats, current, maybe_profile,
+                                          phase, running, set_verbose)
 
 if TYPE_CHECKING:
     import torch
@@ -417,9 +418,13 @@ def _start_up(loader, device, stats: Optional[RunStats]):
     try:
         with phase(stats, "start_up"):
             devs = boot.start_up()
+        if stats is not None:
+            stats.started_up()
     finally:
         if stasher is not None:
             stasher.stop()
+            # the stash's waits on the stream count in its own phase
+            loader.wait_seconds()
     if stasher is None:
         return devs, None, []
     if stasher.error is not None:
@@ -845,7 +850,12 @@ def run(config: RunConfig, device=None,
     :func:`stage`); returns the exit code. On a rank, staging that fails
     in any way (a native feed error, any other exception) does not
     leave the run alone: the ranks first agree on the worst exit code,
-    and every rank returns non-zero when any rank failed."""
+    and every rank returns non-zero when any rank failed. Its RunStats is
+    the one made ready on this thread (the daemon's, with its request's
+    id; :func:`~pandepth_tpu_torch.utils.log.running`), else a new one.
+    ``PANDEPTH_PROFILE`` traces the whole run, from its start, or from the
+    start-up's return where the run starts torch and the card
+    (:func:`~pandepth_tpu_torch.utils.log.maybe_profile`)."""
     if not config.inputs or not config.out_prefix:
         print("Error: lack argument -i or -o ", file=sys.stderr)
         return 1
@@ -860,7 +870,17 @@ def run(config: RunConfig, device=None,
         print("INFO: Run multi-file data ")
     elif is_paf(config.inputs[0]):
         print("INFO: Run paf Format data ")
-    stats = RunStats()
+    stats = current() or RunStats()
+    stats.start()
+    late = device is None and not boot.started() and \
+        not want_host_finalize()
+    with running(stats), maybe_profile(stats, late):
+        return _run(config, device, share, stats)
+
+
+def _run(config: RunConfig, device, share: Optional[Share],
+         stats: RunStats) -> int:
+    """:func:`run` after its checks, timed by ``stats``."""
     rc = 0
     try:
         head = None
@@ -901,7 +921,7 @@ def run(config: RunConfig, device=None,
         return rc
     print("INFO: Input data read done")
     stats.reads_seen = st.engine.n_reads_seen
-    with maybe_profile(), phase(stats, "stats+write"):
+    with phase(stats, "stats+write"):
         finalize_and_write(config, st, stats)
     stats.emit()
     return 0

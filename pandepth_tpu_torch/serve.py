@@ -31,6 +31,16 @@ pandepth_tpu_torch`` or ``pandepth-torch``):
   the host engine inside the daemon (the launcher sends such a run
   here only under an explicit ``PANDEPTH_DAEMON=1``)
 
+Round trip: each request carries an id, which a verbose run prints in
+its ``wall=`` line and names its profiler trace by. A verbose run's reply
+carries the daemon's three spans of it (``daemon.recv``: from the accept
+until the request is decoded; ``daemon.pre``: until the run's RunStats
+starts; ``daemon.post``: from its end until the reply is ready), and the
+client prints them after the reply beside its own two (``client.boot``:
+from its process's start until the request is sent, to a clock tick;
+``client.drain``: from the reply's first bytes until the daemon closes the
+connection, after its garbage collection).
+
 Staleness: each request carries a token of the port's newest source
 mtime and the environment that decides the device
 (``PANDEPTH_FORCE_PLATFORM``, ``CUDA_VISIBLE_DEVICES``); a daemon whose
@@ -49,6 +59,7 @@ import socket
 import sys
 import tempfile
 import threading
+import time
 
 _REQ_LIMIT = 1 << 20
 #: the environment, besides the sources, that decides what a daemon runs on
@@ -120,13 +131,19 @@ class _Server:
         self.token = code_token()
         self.lock = threading.Lock()
 
-    def _run_one(self, req, fds):
+    def _run_one(self, req, fds, recv=None):
         """One CLI request under the caller's cwd, fds and ``PANDEPTH_*``
         environment, which replaces the daemon's for the run (a variable
         the daemon inherited but the request lacks is removed). Returns
         the reply; no exception escapes, so the daemon survives a dead
-        cwd, bad fds and a string ``SystemExit``."""
+        cwd, bad fds and a string ``SystemExit``. ``recv``: the host
+        clock at the request's accept and at its decode; with it, the
+        reply of a verbose run that ended carries the daemon's spans
+        (``spans``)."""
         from pandepth_tpu_torch.cli import main as cli_main
+        from pandepth_tpu_torch.utils import log
+
+        stats = log.RunStats(req=str(req.get("id") or log.request_id()))
 
         saved_fds = [os.dup(i) for i in range(3)]
         saved_cwd = os.getcwd()
@@ -148,7 +165,8 @@ class _Server:
                         del os.environ[k]
                 os.environ.update(req_env)
                 os.chdir(req.get("cwd") or "/")
-                rc = int(cli_main(["pandepth"] + list(req["argv"])))
+                with log.running(stats):
+                    rc = int(cli_main(["pandepth"] + list(req["argv"])))
             except SystemExit as e:
                 # as CPython: sys.exit(str) prints it and exits 1
                 if e.code is None:
@@ -183,7 +201,12 @@ class _Server:
                 os.dup2(fd, i)
                 os.close(fd)
             _close_all(fds)
-        return {"rc": rc, **_usage()}
+        reply = {"rc": rc, **_usage()}
+        if recv is not None and stats.t1 is not None and log.verbose():
+            reply["spans"] = {"daemon.recv": recv[1] - recv[0],
+                              "daemon.pre": stats.t0 - recv[1],
+                              "daemon.post": time.perf_counter() - stats.t1}
+        return reply
 
     def serve(self, idle_s: float, ready_fd: int = -1) -> int:
         """Answer requests until ``stop``, a stale token or ``idle_s``
@@ -219,11 +242,13 @@ class _Server:
                     conn, _ = srv.accept()
                 except socket.timeout:
                     break  # idle: exit and free the card and the socket
+                accepted = time.perf_counter()
                 with conn:
                     # a stopped client must not wedge the daemon: the
                     # connection has a deadline (the run itself has none)
                     conn.settimeout(req_timeout)
                     req, fds = _recv_request(conn)
+                    recv = (accepted, time.perf_counter())
                     if req is None:
                         continue
 
@@ -247,7 +272,7 @@ class _Server:
                         send({"error": "stale"})
                         break  # exit: the client spawns fresh code
                     with self.lock:
-                        reply = self._run_one(req, fds)
+                        reply = self._run_one(req, fds, recv)
                     send(reply)
                     # after the reply, before the next request: no tensor
                     # of this run outlives it in a reference cycle
@@ -343,7 +368,11 @@ def _spawn_daemon() -> bool:
         os.close(rfd)
 
 
-def _request(path: str, payload: dict, fds=()) -> dict:
+def _request(path: str, payload: dict, fds=(), times=None) -> dict:
+    """One request and its reply; ``times`` gets the host clock once the
+    request is sent (``sent``), at the reply's first bytes (``reply``)
+    and at the end of the connection (``eof``)."""
+    times = {} if times is None else times
     conn = socket.socket(socket.AF_UNIX, socket.SOCK_STREAM)
     try:
         conn.connect(path)
@@ -353,15 +382,32 @@ def _request(path: str, payload: dict, fds=()) -> dict:
         else:
             conn.sendall(msg)
         conn.shutdown(socket.SHUT_WR)
+        times["sent"] = time.perf_counter()
         buf = b""
         while True:
             part = conn.recv(65536)
             if not part:
                 break
+            if not buf:
+                times["reply"] = time.perf_counter()
             buf += part
+        times["eof"] = time.perf_counter()
         return json.loads(buf.decode()) if buf else {"error": "closed"}
     finally:
         conn.close()
+
+
+def _print_round_trip(spans: dict, times: dict) -> None:
+    """The round trip's five spans as a verbose run's phase lines: the
+    client's start until its request was sent, the daemon's three and the
+    reply's first bytes until the end of the connection."""
+    from pandepth_tpu_torch.boot import process_seconds
+
+    now = time.perf_counter()
+    lines = {"client.boot": process_seconds() - (now - times["sent"]),
+             **spans, "client.drain": times["eof"] - times["reply"]}
+    for name, sec in lines.items():
+        print(f"INFO: phase {name}: {sec:.6f}s", file=sys.stderr)
 
 
 def daemon_stat() -> dict:
@@ -389,18 +435,23 @@ def client_main(argv) -> int:
     payload = {
         "argv": list(argv),
         "cwd": os.getcwd(),
+        # utils.log.request_id's form, which the client does not import
+        "id": f"{os.getpid():x}-{os.urandom(3).hex()}",
         "token": code_token(),
         "env": {k: v for k, v in os.environ.items()
                 if k.startswith("PANDEPTH_") and k != "PANDEPTH_DAEMON"},
     }
     sys.stdout.flush()
     sys.stderr.flush()
+    times = {}
     for attempt in range(2):
         try:
             reply = _request(path, payload,
                              fds=[0, sys.stdout.fileno(),
-                                  sys.stderr.fileno()])
+                                  sys.stderr.fileno()], times=times)
             if "rc" in reply:
+                if "spans" in reply:
+                    _print_round_trip(reply["spans"], times)
                 return int(reply["rc"])
         except OSError:
             pass

@@ -3,12 +3,15 @@
 tests/test_serve.py and tests/test_launcher.py): ``python -m
 pandepth_tpu_torch`` through a foreground server matches a direct run's
 table, stdout, stderr and exit code byte for byte, in the caller's cwd,
-run after run and on malformed input; a stale token is refused and the
+run after run and on malformed input; a verbose run prints each span of
+its round trip and its feed once, and a quiet one none (the native
+counter of the feed's waits lies within the feed); a stale token is
+refused and the
 next client spawns a fresh daemon; ``_run_one`` replaces the daemon's
 environment, survives errors and leaves no engine alive; ``--daemon-stop``
 stops the daemon; the client imports no torch; the default socket is not
 the JAX package's; ``PANDEPTH_DAEMON=0`` runs in process; and
-``PANDEPTH_PROFILE`` writes a trace. Every daemon runs on the CPU through
+``PANDEPTH_PROFILE`` writes a trace of the whole run. Every daemon runs on the CPU through
 ``PANDEPTH_FORCE_PLATFORM=cpu``, every subprocess under a timeout, and
 the fixtures stop the daemons they start."""
 
@@ -16,6 +19,7 @@ import gc
 import gzip
 import json
 import os
+import re
 import shutil
 import socket
 import subprocess
@@ -139,6 +143,84 @@ def test_verbose_run_leaves_the_next_one_quiet(served, tmp_path):
     assert via.returncode == direct.returncode == 0
     assert (via.stdout, via.stderr) == (direct.stdout, direct.stderr)
     assert b"INFO: phase" not in via.stderr
+
+
+ROUND_TRIP = ("client.boot", "daemon.recv", "daemon.pre", "daemon.post",
+              "client.drain")
+FEED = ("feed.wait", "feed.stage", "h2d")
+
+
+def _phases(stderr: bytes) -> dict:
+    """Each ``INFO: phase <name>: <s>s`` line's name: its seconds, as a
+    list (a name printed twice has two)."""
+    out = {}
+    for line in stderr.decode().splitlines():
+        m = re.match(r"^INFO: phase (\S+): ([0-9.]+)s$", line)
+        if m:
+            out.setdefault(m.group(1), []).append(float(m.group(2)))
+    return out
+
+
+def test_verbose_run_prints_each_span_once(served, tmp_path):
+    """A verbose run through the daemon prints the round trip's five spans
+    and the feed's, each once; with RunStats' wall they fit in the
+    client's wall; the wall line carries the request's id. A quiet run
+    prints none of them."""
+    bam = os.path.join(served["dir"], "t.bam")
+    t0 = time.perf_counter()
+    loud = _launch(served["env"], ["-i", bam, "-o", "v", "-v"],
+                   str(tmp_path))
+    wall = time.perf_counter() - t0
+    assert loud.returncode == 0, loud.stderr
+    got = _phases(loud.stderr)
+    for name in ROUND_TRIP + FEED + ("start_up.torch",):
+        assert len(got.get(name, [])) == 1, (name, loud.stderr)
+        assert got[name][0] >= 0.0
+    assert all(len(v) == 1 for v in got.values()), got
+    m = re.search(rb"^INFO: wall=([0-9.]+)s req=([0-9a-f]+-[0-9a-f]{6}) ",
+                  loud.stderr, re.M)
+    assert m, loud.stderr
+    # client.boot is good to a clock tick (10 ms)
+    assert sum(got[k][0] for k in ROUND_TRIP) + float(m.group(1)) <= \
+        wall + 0.01
+    assert got["feed.wait"][0] + got["feed.stage"][0] + got["h2d"][0] <= \
+        got["feed"][0] + got["stats+write"][0]
+    quiet = _launch(served["env"], ["-i", bam, "-o", "q"], str(tmp_path))
+    assert quiet.returncode == 0 and not _phases(quiet.stderr)
+    assert b"INFO: wall=" not in quiet.stderr
+
+
+def test_native_wait_counter_within_the_feed(tmp_path):
+    """libpancov_io's count of the seconds the consumer blocked on the
+    stream's producer: feed_stream notes it as the run's ``feed.wait``,
+    at least 0 and no longer than the feed; the count starts anew after
+    each read."""
+    from pandepth_tpu_torch.device.engine import CoverageEngine
+    from pandepth_tpu_torch.device.layout import GenomeLayout
+    from pandepth_tpu_torch.feed import feed_stream
+    from pandepth_tpu_torch.io.native import NativeBamStream, load_library
+    from pandepth_tpu_torch.utils.log import RunStats, phase, running
+
+    if load_library() is None:
+        pytest.skip("libpancov_io does not build here")
+    bam = str(tmp_path / "t.bam")
+    make_bam(bam, n=3000, seed=3)
+    for cap in (256, 1 << 14):
+        r = NativeBamStream(bam, 1796, 0)
+        eng = CoverageEngine(GenomeLayout(r.header.lengths), device="cpu")
+        eng.enc_cap = cap
+        stats = RunStats()
+        with running(stats), phase(stats, "feed"):
+            feed_stream(eng, r)
+        wait = stats.phases["feed.wait"]
+        assert 0.0 <= wait <= stats.phases["feed"]
+        assert eng.n_reads_seen == 3000
+    r = NativeBamStream(bam, 1796, 0)
+    while r.wait() >= 0:
+        r.take64(r.wait())
+    assert r.wait_seconds() >= 0.0
+    assert r.wait_seconds() == 0.0
+    r.close()
 
 
 def test_daemon_second_run_in_the_callers_cwd(served, tmp_path):
@@ -342,8 +424,9 @@ def test_run_one_keeps_no_engine_alive(tmp_path):
 
 
 def test_maybe_profile_writes_a_trace(tmp_path, monkeypatch):
-    """PANDEPTH_PROFILE=<dir>: the stats+write phase of a CPU run under
-    torch.profiler, a Chrome trace in <dir>; unset, none."""
+    """PANDEPTH_PROFILE=<dir>: the whole of a CPU run under
+    torch.profiler, a Chrome trace in <dir> whose annotations are the
+    run's phases and spans; unset, none."""
     from pandepth_tpu_torch.cli import main as port_main
 
     bam = str(tmp_path / "t.bam")
@@ -359,5 +442,7 @@ def test_maybe_profile_writes_a_trace(tmp_path, monkeypatch):
     with open(traces[0]) as fh:
         events = json.load(fh)["traceEvents"]
     assert any(e.get("cat") == "cpu_op" for e in events)
+    spans = {e["name"] for e in events if e.get("cat") == "user_annotation"}
+    assert {"feed", "feed.take", "feed.stage", "stats+write"} <= spans
     assert _table(str(tmp_path / "p.chr.stat.gz")) == \
         _table(str(tmp_path / "u.chr.stat.gz"))
