@@ -74,12 +74,14 @@ def try_native_load(path: str, config: RunConfig,
                     ext_offsets=None, ext_limits=None, regions=None):
     """Native load when the file is BAM and the library builds.
 
-    Targeted runs with an index use the one-shot block-skipping loader
-    (only target-overlapping BGZF blocks are inflated). Everything
-    else uses the bounded-memory streaming loader: windows of the file
-    are inflated and walked behind a producer thread while the engine
-    uploads the previous window's events (``PANDEPTH_STREAM=0`` forces
-    the round-1 whole-file loader)."""
+    Targeted runs with an index use the ranged stream (only
+    target-overlapping BGZF blocks are inflated). Everything else uses
+    the bounded-memory streaming loader: windows of the file are
+    inflated and walked behind a producer thread while the engine
+    uploads the previous window's events; with no region filter and an
+    index, the producer walks the splits between the index's record
+    starts on every thread (``PANDEPTH_STREAM=0`` forces the round-1
+    whole-file loader)."""
     with open(path, "rb") as fh:
         magic = fh.read(4)
     if magic[:2] != b"\x1f\x8b":
@@ -129,12 +131,19 @@ def try_native_load(path: str, config: RunConfig,
                                  ext_limits=ext_limits,
                                  regions=regions, vranges=vranges)
         if use_stream:
+            cuts = None
+            if regions is None:
+                from pandepth_tpu_torch.io.bamindex import (load_index_for,
+                                                            record_starts)
+                idx = load_index_for(path)
+                if idx is not None:
+                    cuts = record_starts(idx)
             return NativeBamStream(path, config.flags,
                                    config.min_mapq,
                                    threads=config.threads,
                                    ext_offsets=ext_offsets,
                                    ext_limits=ext_limits,
-                                   regions=regions)
+                                   regions=regions, cuts=cuts)
         return NativeBamLoad(path, config.flags, config.min_mapq,
                              threads=config.threads,
                              ext_offsets=ext_offsets,
@@ -202,9 +211,11 @@ def feed_stream(engine, r, puller: Optional[EncPuller] = None,
     goes on; an engine without encoded windows then decodes them and the
     rest of the stream on the host, since mixing ``take_enc_acc`` with
     ``take32`` on one stream would lose the encoder's accumulated
-    pairs. Each pull of a window is the run's ``feed.take`` span, and the
+    pairs. Each pull of a window is the run's ``feed.take`` span, the
     seconds the pulls blocked on the stream's producer (its counter, read
-    as the stream closes) are its ``feed.wait``."""
+    as the stream closes) are its ``feed.wait``, and the share of the
+    stream's records walked in index-cut splits is its ``feed.split``
+    (a run of several streams notes the sum of their shares)."""
     if getattr(engine, "wants_encoded_windows", False) and \
             hasattr(r, "take_enc_acc"):
         p = puller if puller is not None else \
@@ -234,6 +245,7 @@ def feed_stream(engine, r, puller: Optional[EncPuller] = None,
     engine.n_reads_seen += r.n_records
     if hasattr(r, "wait_seconds"):  # the JAX package's stream has none
         note("feed.wait", r.wait_seconds())
+        note("feed.split", r.split_share())
     r.close()
 
 

@@ -246,18 +246,26 @@ def load_index_for(bam_path: str) -> Optional[BamIndex]:
     return None
 
 
+def record_starts(index: BamIndex) -> np.ndarray:
+    """Every chunk start of every bin, sorted and unique: virtual offsets
+    at which a record starts (when the index belongs to its file). The
+    pseudo-bin that htslib appends to each reference (bin 37450 in a
+    BAI) holds offsets and counts, not chunks, and is left out."""
+    last_bin = ((1 << (3 * (index.depth + 1))) - 1) // 7
+    v0s = [index.bulk_bin_chunks(tid, [b for b in index.bins[tid]
+                                       if b <= last_bin])[:, 0]
+           for tid in range(index.n_ref)]
+    if not v0s:
+        return np.zeros(0, np.int64)
+    return np.unique(np.concatenate(v0s))
+
+
 def full_file_splits(index: BamIndex, n_parts: int) -> np.ndarray:
     """Partition the whole record stream into ~n_parts virtual-offset
     ranges at chunk starts (guaranteed record boundaries), enabling a
     parallel full-file walk. The final range is open-ended so trailing
     records (e.g. unplaced reads) are still visited."""
-    v0s = []
-    for tid in range(index.n_ref):
-        for b in index.bins[tid]:
-            v0s.append(index.bin_chunks(tid, b)[:, 0])
-    if not v0s:
-        return np.zeros((0, 2), np.int64)
-    starts = np.unique(np.concatenate(v0s))
+    starts = record_starts(index)
     if starts.size == 0:
         return np.zeros((0, 2), np.int64)
     picks = starts[np.linspace(0, starts.size - 1,

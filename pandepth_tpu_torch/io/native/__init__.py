@@ -17,6 +17,10 @@ forces a rebuild. ``host_finalize`` binds the native host sweep
 record walk (the JAX package's ``PANDEPTH_PAR_WALK=1``) is left out of
 this copy of ``pancov_io.cpp``: it measured slower than the serial walk,
 and it trusted each record's length to fit the offsets it reserved.
+Instead, a whole-file stream given the index's record starts
+(``NativeBamStream(cuts=...)``) walks the splits between them on every
+thread, each split read, inflated and walked by one thread, and checks
+that each split ends on the next cut.
 """
 
 from __future__ import annotations
@@ -146,12 +150,15 @@ def load_library() -> Optional[ctypes.CDLL]:
             ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
             ctypes.c_int, ctypes.c_void_p, ctypes.c_int64,
-            ctypes.c_int64, ctypes.c_char_p, ctypes.c_int]
+            ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
+            ctypes.c_char_p, ctypes.c_int]
         for name, res, args in [
             ("pancov_stream_wait", ctypes.c_int64, [ctypes.c_void_p]),
             ("pancov_stream_win_records", ctypes.c_int64,
              [ctypes.c_void_p]),
             ("pancov_stream_n_records", ctypes.c_int64,
+             [ctypes.c_void_p]),
+            ("pancov_stream_split_records", ctypes.c_int64,
              [ctypes.c_void_p]),
             ("pancov_stream_progress", None,
              [ctypes.c_void_p, ctypes.POINTER(ctypes.c_int64),
@@ -639,14 +646,23 @@ class NativeBamStream:
     the consumer pulls each window's coverage events while the next
     window inflates. Peak RSS is O(window), so files many times host
     RAM stream fine (the reference's htslib-streaming + 10 Mb window
-    memory model, src/PanDepth.cpp:676-723, re-done TPU-side)."""
+    memory model, src/PanDepth.cpp:676-723, re-done TPU-side).
+
+    ``cuts``: the index's record-start virtual offsets
+    (``bamindex.record_starts``). With them, a whole-file stream (no
+    ``regions``, no ``vranges``) of a BGZF BAM is walked in splits
+    between them on every thread, handed out in file order; a split
+    that does not end on its cut (an index that does not match the
+    file) hands the rest of the stream to the serial walk.
+    :meth:`split_share` says how much went through splits."""
 
     def __init__(self, path: str, flags_mask: int, min_mapq: int,
                  pad: int = 512, threads: int = 0,
                  ext_offsets: Optional[np.ndarray] = None,
                  ext_limits: Optional[np.ndarray] = None,
                  regions=None, vranges: Optional[np.ndarray] = None,
-                 window_bytes: int = 0):
+                 window_bytes: int = 0,
+                 cuts: Optional[np.ndarray] = None):
         from pandepth_tpu_torch.io.bam import BamHeader
 
         lib = load_library()
@@ -691,11 +707,17 @@ class NativeBamStream:
             vrp, nvr = vrr.ctypes.data, vrr.shape[0] // 2
         else:
             vrp, nvr = None, 0
+        if cuts is not None and len(cuts):
+            cta = np.ascontiguousarray(cuts, np.int64)
+            keep.append(cta)
+            ctp, nct = cta.ctypes.data, cta.shape[0]
+        else:
+            ctp, nct = None, 0
         self._h = lib.pancov_stream_open(
             path.encode(), threads, flags_mask, min_mapq, pad, op, lp,
-            ne, rop, rsp, rep, nr, rmode, vrp, nvr, window_bytes, err,
-            len(err))
-        del keep  # the C side copies region/layout arrays
+            ne, rop, rsp, rep, nr, rmode, vrp, nvr, ctp, nct,
+            window_bytes, err, len(err))
+        del keep  # the C side copies region/layout/cut arrays
         if not self._h:
             raise ValueError(
                 f"pancov_stream_open({path}): {err.value.decode()}")
@@ -813,6 +835,14 @@ class NativeBamStream:
     @property
     def n_records(self) -> int:
         return int(self._lib.pancov_stream_n_records(self._h))
+
+    def split_share(self) -> float:
+        """The share of the records handed out so far that were walked
+        in index-cut splits: 1.0 when every split ended on its cut, 0.0
+        for a stream without splits (or without records)."""
+        split = int(self._lib.pancov_stream_split_records(self._h))
+        n = self.n_records  # read second: never below ``split``
+        return split / n if n else 0.0
 
     def wait_seconds(self) -> float:
         """Seconds the consumer blocked on the producer's queue (in

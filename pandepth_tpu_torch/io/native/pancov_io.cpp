@@ -20,10 +20,12 @@
 // Exposed as a plain C ABI for ctypes; no Python headers needed.
 
 #include <sys/mman.h>
+#include <unistd.h>
 
 #include <algorithm>
 #include <atomic>
 #include <chrono>
+#include <cerrno>
 #include <condition_variable>
 #include <deque>
 #include <functional>
@@ -589,8 +591,9 @@ struct WalkCtx {
   // WERE the walk. Non-monotone records (unsorted input) fall back
   // to the binary search, so semantics never change. MUST stay off
   // when multiple threads share one ctx (the one-shot parallel ranged
-  // walkers): the hints are stateful. (This copy of the library has no
-  // parallel record walk, PANDEPTH_PAR_WALK, in its stream.)
+  // walkers): the hints are stateful. (The stream's index-cut splits
+  // share one ctx across threads only with no region filter, where no
+  // hint is read; this copy of the library has no PANDEPTH_PAR_WALK.)
   bool mono_hint = false;
   std::vector<int64_t> m1_hint;
   std::vector<int64_t> m1_last;
@@ -1283,6 +1286,12 @@ struct StreamBam {
   // nanoseconds the consumer blocked on the queue (wait_window; read and
   // restarted by pancov_stream_wait_ns); guarded by mu
   int64_t wait_ns = 0;
+  // index-cut splits (walk_splits): the index's record-start virtual
+  // offsets past the header's end, sorted; empty = the serial walk
+  std::vector<int64_t> cuts;
+  int64_t hdr_voff = 0;       // virtual offset of the first record
+  int64_t split_records = 0;  // records handed out from verified
+                              // splits (guarded by mu)
 
   ~StreamBam() {
     {
@@ -1310,22 +1319,54 @@ struct StreamBam {
     cv.notify_all();
   }
 
+  void end_stream() {
+    std::lock_guard<std::mutex> lk(mu);
+    done = true;
+    cv.notify_all();
+  }
+
+  // The producer thread. The whole-file stream of an indexed BGZF BAM
+  // walks index-cut splits on every thread (walk_splits); every other
+  // stream, and the rest of a stream whose index did not match its
+  // file, is the serial walk (walk_serial). n_threads in all: this
+  // thread and the team's n_threads - 1.
   void produce() {
+    WalkTeam team;
+    team.start(n_threads - 1);
+    const bool dbg = std::getenv("PANDEPTH_STREAM_DEBUG") != nullptr;
+    int64_t resume = -1;
+    if (!cuts.empty()) {
+      resume = walk_splits(team, dbg);
+      if (resume == kSplitsStopped) return;
+      if (resume == kSplitsDone) return end_stream();
+    }
+    walk_serial(team, resume, dbg);
+  }
+
+  static double ms_between(std::chrono::steady_clock::time_point a,
+                           std::chrono::steady_clock::time_point b) {
+    return std::chrono::duration_cast<std::chrono::microseconds>(
+               b - a).count() / 1000.0;
+  }
+
+  // The serial walk: read a compressed window, inflate its blocks on
+  // the team while this thread chases the inflated frontier record by
+  // record. It serves the ranged stream (vr_v0: the region cursor's
+  // mode-2 state and mode 1's monotone hint are stateful, so one
+  // thread walks), a region filter without an index, a BAM without
+  // one, non-BGZF input, and a whole-file stream from `resume` on (a
+  // virtual offset the split walk verified) when a split did not end
+  // on its cut.
+  void walk_serial(WalkTeam& team, int64_t resume, bool dbg) {
     // persistent window buffers: pages fault in once, then stay hot —
     // re-allocating per window costs ~0.25 ms/MB in soft faults, which
     // at GB/s inflate rates dominates the whole pipeline
     std::vector<uint8_t> raw;
     std::vector<uint8_t> dec;
-    WalkTeam team;
-    team.start(n_threads - 1);
     EvSink sink;
     sink.track_records = false;
-    const bool dbg = std::getenv("PANDEPTH_STREAM_DEBUG") != nullptr;
     auto now = [] { return std::chrono::steady_clock::now(); };
-    auto ms = [](auto a, auto b) {
-      return std::chrono::duration_cast<std::chrono::microseconds>(
-                 b - a).count() / 1000.0;
-    };
+    auto ms = ms_between;
     // carries live at the FRONT of the persistent buffers; lengths
     // track the live prefix (raw: compressed tail of a split block,
     // dec: decompressed tail of a split record)
@@ -1351,6 +1392,14 @@ struct StreamBam {
       // index-guaranteed record boundary reached by seek
       raw_len = 0;
       dec_carry = 0;
+    }
+    if (resume >= 0) {
+      if (fseeko(f, (off_t)(resume >> 16), SEEK_SET) != 0)
+        return fail("seek failed");
+      raw_len = 0;
+      dec_carry = 0;
+      src_eof = false;
+      walk_skip = (size_t)(resume & 0xFFFF);
     }
     for (;;) {
       {
@@ -1626,9 +1675,352 @@ struct StreamBam {
                    "[stream] produce wall=%.1fms cycles=%lld "
                    "cycle_sum=%.1fms\n",
                    ms(prod_t0, now()), (long long)n_cyc, cyc_sum);
-    std::lock_guard<std::mutex> lk(mu);
-    done = true;
-    cv.notify_all();
+    end_stream();
+  }
+
+  // ---- index-cut splits -------------------------------------------
+  // The whole-file stream of an indexed BGZF BAM with no region filter
+  // is cut at the index's record starts (its chunk starts) into splits
+  // of about 1 / kSplitShare of a window inflated. Each thread takes the
+  // next split in file order and walks it alone: it reads the split's
+  // compressed bytes, inflates them block by block into a buffer of its
+  // own and walks each block's records while the block is still in its
+  // cache. No thread chases another's freshly inflated bytes, which is
+  // what bounds the serial walk (its one walker reads blocks other
+  // cores just wrote). Splits are handed out strictly in file order,
+  // gathered into windows of the serial walk's size, and a split counts
+  // only when its walk ended exactly on the next cut: a split of an
+  // index that does not match its BAM (another file's, or a stale one)
+  // ends elsewhere, and the serial walk takes over from the last
+  // verified offset, so the events are the serial walk's either way.
+  static constexpr int64_t kSplitsDone = -2;
+  static constexpr int64_t kSplitsStopped = -3;
+  // a split's target inflated size is window_bytes / kSplitShare: at the
+  // default window about one block in 64 is inflated twice (the block
+  // that holds a cut is walked by both of its splits)
+  static constexpr size_t kSplitShare = 2;
+  // splits in flight (walking, or walked and waiting for their turn)
+  // per thread
+  static constexpr int64_t kSplitsAhead = 2;
+
+  struct SplitSlot {
+    EvSink sink;
+    std::vector<uint8_t> comp, dec;  // persistent: no page churn
+    int64_t k = -1;   // the split it holds
+    int state = 0;    // 0 free or walking, 1 ended on its cut, 2 did not
+    size_t infl = 0;  // bytes inflated
+    int64_t read_ns = 0, inflate_ns = 0, walk_ns = 0;  // debug timing
+  };
+
+  // the split starts: the header's end, then cuts at least `step`
+  // compressed bytes apart, where `step` is the compressed span of
+  // window_bytes / kSplitShare inflated at the ratio of the first MB
+  // after the header
+  std::vector<int64_t> split_starts() {
+    std::vector<uint8_t> buf(1 << 20);
+    ssize_t got = pread(fileno(f), buf.data(), buf.size(),
+                        (off_t)(hdr_voff >> 16));
+    std::vector<Block> blocks;
+    size_t out = 0, used = 0;
+    double ratio = 1.0;
+    if (got > 0 &&
+        scan_blocks_partial(buf.data(), (size_t)got, blocks, out, used) &&
+        used > 0 && out > 0)
+      ratio = (double)out / (double)used;
+    int64_t step =
+        (int64_t)((double)(window_bytes / kSplitShare) / ratio);
+    if (step < 1) step = 1;
+    std::vector<int64_t> sv{hdr_voff};
+    for (int64_t c : cuts)
+      if (c > sv.back() && (c >> 16) - (sv.back() >> 16) >= step)
+        sv.push_back(c);
+    return sv;
+  }
+
+  // Walk split k, [sv[k], sv[k + 1]) or from sv[k] to EOF for the last,
+  // into s.sink. True when the walk ended exactly on the next cut (the
+  // last split: on a record's end at EOF); false on anything else: a
+  // record across the cut, no block at the cut's offset, a bad block or
+  // record, a read past EOF, or more than `cap` bytes inflated.
+  bool walk_split(const std::vector<int64_t>& sv, int64_t k,
+                  SplitSlot& s, size_t cap, bool dbg) {
+    const bool last = k + 1 == (int64_t)sv.size();
+    const uint64_t c0 = (uint64_t)sv[k] >> 16;
+    const size_t u0 = (size_t)(sv[k] & 0xFFFF);
+    const uint64_t c1 = last ? UINT64_MAX : (uint64_t)sv[k + 1] >> 16;
+    const size_t u1 = last ? 0 : (size_t)(sv[k + 1] & 0xFFFF);
+    // a BGZF block spans at most 64 KiB: the block at c1 ends by then
+    const uint64_t fsize = (uint64_t)comp_total;
+    const uint64_t lim = last ? fsize : std::min(fsize, c1 + 65536);
+    const int fd = fileno(f);
+    s.sink.es.clear();
+    s.sink.ee.clear();
+    s.sink.n_rec = 0;
+    s.infl = 0;
+    using clock = std::chrono::steady_clock;
+    auto ns = [](clock::time_point a, clock::time_point b) {
+      return (int64_t)std::chrono::duration_cast<
+          std::chrono::nanoseconds>(b - a).count();
+    };
+    // compressed bytes [cbase + cpos, cbase + clen) are read, unparsed
+    uint64_t cbase = c0;
+    size_t clen = 0, cpos = 0;
+    auto fill = [&](size_t need) -> bool {
+      if (clen - cpos >= need) return true;
+      auto t0 = dbg ? clock::now() : clock::time_point();
+      if (cpos > 0) {
+        std::memmove(s.comp.data(), s.comp.data() + cpos, clen - cpos);
+        cbase += cpos;
+        clen -= cpos;
+        cpos = 0;
+      }
+      uint64_t at = cbase + clen;
+      size_t want = at >= lim ? 0 : (size_t)std::min<uint64_t>(
+          lim - at, std::max<size_t>(need - clen, 1 << 20));
+      if (s.comp.size() < clen + want) s.comp.resize(clen + want);
+      while (want > 0) {
+        ssize_t got = pread(fd, s.comp.data() + clen, want,
+                            (off_t)(cbase + clen));
+        if (got < 0 && errno == EINTR) continue;
+        if (got <= 0) break;
+        clen += (size_t)got;
+        want -= (size_t)got;
+      }
+      if (dbg) s.read_ns += ns(t0, clock::now());
+      return clen - cpos >= need;
+    };
+    // inflated bytes [dbase, lin) of the split's linear stream (offset
+    // 0 = block c0's first byte) are in s.dec; lin is the end of the
+    // blocks inflated so far
+    size_t lin = 0, dbase = 0;
+    size_t rec = u0;  // the next record's start
+    size_t target = SIZE_MAX;  // the next cut, once its block is seen
+    for (bool first = true;; first = false) {
+      const uint64_t boff = cbase + cpos;
+      if (boff == c1) {
+        target = lin + u1;
+        if (rec == target) return true;  // u1 == 0: the cut's block
+                                         // need not be inflated
+      } else if (boff > c1) {
+        return false;
+      }
+      if (!fill(18)) return last && clen == cpos && rec == lin;
+      const uint8_t* p = s.comp.data() + cpos;
+      if (p[0] != 0x1f || p[1] != 0x8b || !(p[3] & 4)) return false;
+      const size_t xend = 12 + (size_t)le16(p + 10);
+      if (!fill(xend)) return false;
+      p = s.comp.data() + cpos;
+      long bsize = -1;
+      for (size_t xp = 12; xp + 4 <= xend;) {
+        uint16_t slen = le16(p + xp + 2);
+        if (p[xp] == 'B' && p[xp + 1] == 'C' && slen == 2)
+          bsize = (long)le16(p + xp + 4) + 1;
+        xp += 4 + slen;
+      }
+      if (bsize < 0 || (size_t)bsize < xend + 8 || !fill((size_t)bsize))
+        return false;
+      p = s.comp.data() + cpos;
+      const uint32_t isize = le32(p + bsize - 4);
+      if ((boff == c1 && u1 > isize) || (first && u0 > isize))
+        return false;
+      // keep only the record in progress (the first block's bytes
+      // before u0 stay until the walk passes them)
+      size_t keep = std::min(rec, lin);
+      if (keep > dbase) {
+        std::memmove(s.dec.data(), s.dec.data() + (keep - dbase),
+                     lin - keep);
+        dbase = keep;
+      }
+      size_t dlen = lin - dbase;
+      if (s.dec.size() < dlen + isize) s.dec.resize(dlen + isize);
+      auto t1 = dbg ? clock::now() : clock::time_point();
+      if (isize &&
+          !inflate_block(p + xend, (size_t)bsize - xend - 8,
+                         s.dec.data() + dlen, isize))
+        return false;
+      auto t2 = dbg ? clock::now() : t1;
+      cpos += (size_t)bsize;
+      dlen += isize;
+      lin += isize;
+      s.infl += isize;
+      while (rec + 4 <= lin && rec != target) {
+        const size_t end =
+            rec + 4 + (size_t)le32(s.dec.data() + (rec - dbase));
+        if (end > target) return false;  // a record across the cut
+        if (end > lin) break;            // it ends in a later block
+        size_t nxt = ctx.process_record(s.dec.data(), dlen, rec - dbase,
+                                        s.sink);
+        if (nxt == 0) return false;
+        rec = dbase + nxt;
+      }
+      if (dbg) {
+        s.inflate_ns += ns(t1, t2);
+        s.walk_ns += ns(t2, clock::now());
+      }
+      if (rec == target) return true;
+      if (s.infl > cap) return false;
+    }
+  }
+
+  // Walk the splits on every thread and hand them out in file order.
+  // Returns kSplitsDone at the stream's end, kSplitsStopped when the
+  // consumer closed the stream, or the virtual offset from which the
+  // serial walk goes on: the start of the first split that did not end
+  // on its cut (every split before it did, so that offset is a record
+  // start).
+  int64_t walk_splits(WalkTeam& team, bool dbg) {
+    const auto t_start = std::chrono::steady_clock::now();
+    const std::vector<int64_t> sv = split_starts();
+    const int64_t n_sp = (int64_t)sv.size();
+    const int64_t ring = kSplitsAhead * n_threads;
+    const size_t cap = window_bytes * 4;  // the serial walk's dec cap
+    std::vector<SplitSlot> slots(ring);
+    for (auto& sl : slots) sl.sink.track_records = false;
+    std::mutex sm;  // guards the fields below and the slots' k, state
+    std::condition_variable scv;
+    int64_t next_k = 0, handed = 0, bad_k = -1;
+    bool merging = false, halt = false;
+    // the window being gathered: the merging thread's alone
+    StreamWin win;
+    size_t win_infl = 0;
+    int64_t win_comp = 0, win_splits = 0, n_win = 0;
+    auto span = [&](int64_t k) -> int64_t {
+      return (k + 1 < n_sp ? sv[k + 1] >> 16 : comp_total) -
+             (sv[k] >> 16);
+    };
+    // hand `win` to the consumer (false: the stream was closed)
+    auto push = [&]() -> bool {
+      const auto t0 = std::chrono::steady_clock::now();
+      std::unique_lock<std::mutex> lk(mu);
+      cv.wait(lk, [&] { return q.size() < 2 || stop; });
+      if (stop) return false;
+      total_records += win.n_rec;
+      split_records += win.n_rec;
+      pairs_produced.fetch_add((long long)win.es.size(),
+                               std::memory_order_relaxed);
+      if (dbg)
+        std::fprintf(stderr,
+                     "[stream] split window: splits=%lld dec=%zuMB "
+                     "comp=%lldKB rec=%lld qwait=%.1fms\n",
+                     (long long)win_splits, win_infl >> 20,
+                     (long long)(win_comp >> 10), (long long)win.n_rec,
+                     ms_between(t0, std::chrono::steady_clock::now()));
+      q.push_back(std::move(win));
+      cv.notify_all();
+      win = StreamWin();
+      if (!pool.empty()) {
+        win = std::move(pool.back());
+        pool.pop_back();
+      }
+      win.es.clear();
+      win.ee.clear();
+      win.n_rec = 0;
+      win_infl = 0;
+      win_comp = 0;
+      win_splits = 0;
+      n_win++;
+      return true;
+    };
+    // append every walked split whose turn has come to `win`, pushing
+    // each full window; one thread at a time (`merging`)
+    auto merge = [&]() {
+      for (;;) {
+        SplitSlot* s;
+        {
+          std::lock_guard<std::mutex> lk(sm);
+          s = &slots[handed % ring];
+          bool turn = !halt && handed < n_sp && s->k == handed;
+          if (!turn || s->state != 1) {
+            if (turn && s->state == 2) bad_k = handed;
+            merging = false;
+            scv.notify_all();
+            return;
+          }
+        }
+        win.es.insert(win.es.end(), s->sink.es.begin(),
+                      s->sink.es.end());
+        win.ee.insert(win.ee.end(), s->sink.ee.begin(),
+                      s->sink.ee.end());
+        win.n_rec += s->sink.n_rec;
+        win_infl += s->infl;
+        win_comp += span(handed);
+        win_splits++;
+        comp_consumed.fetch_add((long long)span(handed),
+                                std::memory_order_relaxed);
+        bool full;
+        {
+          std::lock_guard<std::mutex> lk(sm);
+          s->state = 0;
+          s->k = -1;
+          handed++;
+          full = handed == n_sp || win_infl >= cap ||
+                 win_comp >= (int64_t)window_bytes;
+          scv.notify_all();
+        }
+        if (full && !push()) {
+          std::lock_guard<std::mutex> lk(sm);
+          halt = true;
+          merging = false;
+          scv.notify_all();
+          return;
+        }
+      }
+    };
+    auto worker = [&]() {
+      for (;;) {
+        {
+          std::lock_guard<std::mutex> lk(mu);
+          if (stop) return;
+        }
+        int64_t k;
+        {
+          std::unique_lock<std::mutex> lk(sm);
+          scv.wait(lk, [&] {
+            return halt || bad_k >= 0 || next_k >= n_sp ||
+                   next_k < handed + ring;
+          });
+          if (halt || bad_k >= 0 || next_k >= n_sp) return;
+          k = next_k++;
+        }
+        SplitSlot& s = slots[k % ring];
+        bool ok = walk_split(sv, k, s, cap, dbg);
+        {
+          std::lock_guard<std::mutex> lk(sm);
+          s.k = k;
+          s.state = ok ? 1 : 2;
+          if (merging) continue;  // the merging thread takes it in turn
+          merging = true;
+        }
+        merge();
+      }
+    };
+    team.run(worker);
+    worker();
+    team.wait();
+    {
+      std::lock_guard<std::mutex> lk(mu);
+      if (stop) halt = true;
+    }
+    if (!halt && bad_k >= 0 && win_splits > 0 && !push()) halt = true;
+    if (dbg) {
+      int64_t rd = 0, inf = 0, wk = 0;
+      for (auto& sl : slots) {
+        rd += sl.read_ns;
+        inf += sl.inflate_ns;
+        wk += sl.walk_ns;
+      }
+      std::fprintf(stderr,
+                   "[stream] splits=%lld walked=%lld threads=%d "
+                   "windows=%lld wall=%.1fms read=%.1fms inflate=%.1fms "
+                   "walk=%.1fms (thread time) fallback_at=%lld\n",
+                   (long long)n_sp, (long long)handed, n_threads,
+                   (long long)n_win,
+                   ms_between(t_start, std::chrono::steady_clock::now()),
+                   rd / 1e6, inf / 1e6, wk / 1e6,
+                   (long long)(bad_k >= 0 ? sv[bad_k] : -1));
+    }
+    if (halt) return kSplitsStopped;
+    return bad_k >= 0 ? sv[bad_k] : kSplitsDone;
   }
 };
 
@@ -1642,6 +2034,9 @@ extern "C" {
 // offset pairs from the index — when given (region_mode 1 + BGZF only)
 // the producer seeks between them, inflating only target-overlapping
 // spans: the reference's sam_itr block skipping with bounded memory.
+// cuts: n_cuts record-start virtual offsets from the index (its chunk
+// starts); on a BGZF file with no region filter and no vr the producer
+// walks the splits between them on every thread (walk_splits).
 void* pancov_stream_open(const char* path, int n_threads,
                          uint32_t flags_mask, int32_t min_mapq,
                          int64_t pad, const int64_t* ext_offsets,
@@ -1650,7 +2045,8 @@ void* pancov_stream_open(const char* path, int n_threads,
                          const int64_t* reg_start,
                          const int64_t* reg_end, int64_t n_regions,
                          int region_mode, const int64_t* vr,
-                         int64_t n_vr, int64_t window_bytes,
+                         int64_t n_vr, const int64_t* cuts,
+                         int64_t n_cuts, int64_t window_bytes,
                          char* err, int err_len) {
   auto* sb = new StreamBam();
   auto fail0 = [&](const char* msg) -> void* {
@@ -1669,6 +2065,9 @@ void* pancov_stream_open(const char* path, int n_threads,
     std::vector<uint8_t> raw;
     std::vector<uint8_t> dec;
     size_t comp_done = 0;  // raw bytes already scanned+inflated
+    // each inflated block's (file offset, first inflated byte): the
+    // header's end as a virtual offset
+    std::vector<std::pair<size_t, size_t>> starts;
     bool got_magic = false;
     for (;;) {
       size_t base = raw.size();
@@ -1697,6 +2096,8 @@ void* pancov_stream_open(const char* path, int n_threads,
         for (auto& b : blocks) {
           b.in_off += comp_done;
           b.src_off += comp_done;
+          if (b.out_len)
+            starts.emplace_back(b.src_off, base_dec + b.out_off);
         }
         if (!inflate_window(raw.data(), blocks, dec.data() + base_dec,
                             1))
@@ -1711,6 +2112,11 @@ void* pancov_stream_open(const char* path, int n_threads,
                                 hdr_end);
       if (rc < 0) return fail0("not a BAM stream");
       if (rc == 1) {
+        sb->hdr_voff = (int64_t)comp_done << 16;  // at a block's end
+        for (auto& st : starts)
+          if (st.second <= hdr_end && hdr_end < dec.size())
+            sb->hdr_voff =
+                (int64_t)(st.first << 16 | (hdr_end - st.second));
         sb->carry_rec.assign(dec.begin() + hdr_end, dec.end());
         sb->carry_comp.assign(raw.begin() + comp_done, raw.end());
         sb->comp_consumed.store((long long)comp_done,
@@ -1750,7 +2156,8 @@ void* pancov_stream_open(const char* path, int n_threads,
   sb->ctx.limits = sb->limits.data();
   sb->ctx.n_targets = (int64_t)sb->offsets.size();
   sb->ctx.init_cursor();
-  // the streaming producer's record walk is the single chaser thread
+  // mode 1's monotone hint: a region filter keeps the serial walk,
+  // where one thread walks every record in file order
   sb->ctx.mono_hint = true;
 
   // ranged streaming: sorted (v0, v1) pairs, coalesced so that no two
@@ -1791,6 +2198,17 @@ void* pancov_stream_open(const char* path, int n_threads,
       sb->comp_total = (long long)ftello(sb->f);
       fseeko(sb->f, cur, SEEK_SET);
     }
+  }
+
+  // index-cut splits: the whole-file stream of a seekable BGZF file
+  // with no region filter (the region cursor and mode 1's hint are
+  // stateful, and a ranged stream reads only its spans)
+  if (n_cuts > 0 && sb->bgzf && n_regions == 0 && sb->vr_v0.empty() &&
+      sb->comp_total > 0) {
+    sb->cuts.assign(cuts, cuts + n_cuts);
+    std::sort(sb->cuts.begin(), sb->cuts.end());
+    sb->comp_consumed.store((long long)(sb->hdr_voff >> 16),
+                            std::memory_order_relaxed);
   }
 
   sb->producer = std::thread([sb] { sb->produce(); });
@@ -2073,6 +2491,14 @@ int64_t pancov_stream_n_records(void* h) {
   auto* sb = (StreamBam*)h;
   std::lock_guard<std::mutex> lk(sb->mu);
   return sb->total_records;
+}
+
+// records handed out so far that were walked in index-cut splits (of
+// pancov_stream_n_records' count)
+int64_t pancov_stream_split_records(void* h) {
+  auto* sb = (StreamBam*)h;
+  std::lock_guard<std::mutex> lk(sb->mu);
+  return sb->split_records;
 }
 
 void pancov_stream_error(void* h, char* err, int err_len) {
