@@ -97,11 +97,12 @@ def try_native_load(path: str, config: RunConfig,
         if regions is not None and regions[3] == 1:
             from pandepth_tpu_torch.io.bamindex import (chunks_for_windows,
                                                         load_index_for)
-            idx = load_index_for(path)
-            if idx is not None:
-                # index-driven block skipping: decompress only the
-                # BGZF blocks whose records can overlap the windows
-                vranges = chunks_for_windows(idx, regions)
+            with span("feed.index"):
+                idx = load_index_for(path)
+                if idx is not None:
+                    # index-driven block skipping: decompress only the
+                    # BGZF blocks whose records can overlap the windows
+                    vranges = chunks_for_windows(idx, regions)
             if vranges is not None and use_stream:
                 # ranged streaming: block skipping with bounded
                 # memory — the producer seeks between merged chunk
@@ -213,9 +214,12 @@ def feed_stream(engine, r, puller: Optional[EncPuller] = None,
     ``take32`` on one stream would lose the encoder's accumulated
     pairs. Each pull of a window is the run's ``feed.take`` span, the
     seconds the pulls blocked on the stream's producer (its counter, read
-    as the stream closes) are its ``feed.wait``, and the share of the
-    stream's records walked in index-cut splits is its ``feed.split``
-    (a run of several streams notes the sum of their shares)."""
+    as the stream closes) are its ``feed.wait``, the share of the
+    stream's records walked in index-cut splits is its ``feed.split``,
+    the share of the file's compressed bytes that its walk consumed its
+    ``feed.read``, and the share of its decoded records that its filters
+    kept its ``feed.kept`` (a run of several streams notes the sum of
+    their shares)."""
     if getattr(engine, "wants_encoded_windows", False) and \
             hasattr(r, "take_enc_acc"):
         p = puller if puller is not None else \
@@ -246,6 +250,8 @@ def feed_stream(engine, r, puller: Optional[EncPuller] = None,
     if hasattr(r, "wait_seconds"):  # the JAX package's stream has none
         note("feed.wait", r.wait_seconds())
         note("feed.split", r.split_share())
+        note("feed.read", r.read_share())
+        note("feed.kept", r.kept_share())
     r.close()
 
 

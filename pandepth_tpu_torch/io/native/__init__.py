@@ -160,6 +160,10 @@ def load_library() -> Optional[ctypes.CDLL]:
              [ctypes.c_void_p]),
             ("pancov_stream_split_records", ctypes.c_int64,
              [ctypes.c_void_p]),
+            ("pancov_stream_kept_records", ctypes.c_int64,
+             [ctypes.c_void_p]),
+            ("pancov_stream_read_bytes", ctypes.c_int64,
+             [ctypes.c_void_p]),
             ("pancov_stream_progress", None,
              [ctypes.c_void_p, ctypes.POINTER(ctypes.c_int64),
               ctypes.POINTER(ctypes.c_int64),
@@ -721,6 +725,7 @@ class NativeBamStream:
         if not self._h:
             raise ValueError(
                 f"pancov_stream_open({path}): {err.value.decode()}")
+        self._size = os.path.getsize(path)
         n = lib.pancov_stream_n_targets(self._h)
         names = []
         lengths = np.zeros(n, np.int64)
@@ -843,6 +848,21 @@ class NativeBamStream:
         split = int(self._lib.pancov_stream_split_records(self._h))
         n = self.n_records  # read second: never below ``split``
         return split / n if n else 0.0
+
+    def kept_share(self) -> float:
+        """The share of the records handed out so far that the ``-x``/``-q``
+        and region filters kept (0.0 for a stream without records)."""
+        kept = int(self._lib.pancov_stream_kept_records(self._h))
+        n = self.n_records  # read second: never below ``kept``
+        return kept / n if n else 0.0
+
+    def read_share(self) -> float:
+        """The compressed bytes the walk has consumed so far over the
+        file's size: the header's blocks, every block walked, and a ranged
+        walk's over-read past each range's end (1.0 once a whole-file walk
+        has ended)."""
+        return int(self._lib.pancov_stream_read_bytes(self._h)) / \
+            self._size if self._size else 0.0
 
     def wait_seconds(self) -> float:
         """Seconds the consumer blocked on the producer's queue (in

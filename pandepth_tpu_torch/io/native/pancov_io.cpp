@@ -54,6 +54,33 @@
 
 namespace {
 
+// An allocator that maps its memory straight from the system and unmaps
+// it on free. The host process pins M_MMAP/M_TRIM at 1 GB
+// (boot.disable_thp), so heap memory that a stream's producer thread
+// frees stays in that thread's malloc arena; each stream has a producer
+// thread of its own, which may land in an arena no earlier stream used,
+// and a daemon then grew by a window's buffers (~40 MB) a stream until
+// every arena held its own.
+template <class T>
+struct MapAlloc {
+  using value_type = T;
+  MapAlloc() = default;
+  template <class U>
+  MapAlloc(const MapAlloc<U>&) {}
+  T* allocate(size_t n) {
+    void* m = mmap(nullptr, n * sizeof(T), PROT_READ | PROT_WRITE,
+                   MAP_PRIVATE | MAP_ANONYMOUS, -1, 0);
+    if (m == MAP_FAILED) throw std::bad_alloc();
+    return (T*)m;
+  }
+  void deallocate(T* p, size_t n) { munmap(p, n * sizeof(T)); }
+  template <class U>
+  bool operator==(const MapAlloc<U>&) const { return true; }
+  template <class U>
+  bool operator!=(const MapAlloc<U>&) const { return false; }
+};
+using MapBytes = std::vector<uint8_t, MapAlloc<uint8_t>>;
+
 struct Block {
   size_t src_off;    // block start offset in the file (BAI coffset)
   size_t in_off;     // compressed payload offset
@@ -558,6 +585,7 @@ struct EvSink {
   std::vector<int32_t> rec_nc;
   int64_t ops = 0;
   int64_t n_rec = 0;
+  int64_t n_kept = 0;  // records kept by the -x/-q and region filters
   bool track_records = true;  // streaming sinks only count
   std::vector<int64_t> es, ee;
 };
@@ -698,6 +726,7 @@ struct WalkCtx {
       }
     }
     if (keep) {
+      sk.n_kept++;
       int64_t cur = offsets[tid] + (int32_t)le32(p + 4);
       int64_t floor = offsets[tid], limit = limits[tid];
       for (int64_t k = 0; k < nc; k++) {
@@ -1282,6 +1311,10 @@ struct StreamBam {
   // consume (whole file, or the ranged walk's selected spans)
   std::atomic<long long> comp_consumed{0};
   long long comp_total = 0;
+  // of comp_consumed, the ranged walk's budget bytes settled unread (an
+  // over-reach past EOF, or past the window that closed its range):
+  // comp_consumed less these is what the walk read
+  std::atomic<long long> comp_unread{0};
   std::atomic<long long> pairs_produced{0};  // event pairs handed off
   // nanoseconds the consumer blocked on the queue (wait_window; read and
   // restarted by pancov_stream_wait_ns); guarded by mu
@@ -1292,6 +1325,8 @@ struct StreamBam {
   int64_t hdr_voff = 0;       // virtual offset of the first record
   int64_t split_records = 0;  // records handed out from verified
                               // splits (guarded by mu)
+  int64_t kept_records = 0;   // records handed out that the filters
+                              // kept (guarded by mu)
 
   ~StreamBam() {
     {
@@ -1360,9 +1395,10 @@ struct StreamBam {
   void walk_serial(WalkTeam& team, int64_t resume, bool dbg) {
     // persistent window buffers: pages fault in once, then stay hot —
     // re-allocating per window costs ~0.25 ms/MB in soft faults, which
-    // at GB/s inflate rates dominates the whole pipeline
-    std::vector<uint8_t> raw;
-    std::vector<uint8_t> dec;
+    // at GB/s inflate rates dominates the whole pipeline; mapped, so that
+    // they leave no memory behind in this thread's arena (MapAlloc)
+    MapBytes raw;
+    MapBytes dec;
     EvSink sink;
     sink.track_records = false;
     auto now = [] { return std::chrono::steady_clock::now(); };
@@ -1451,6 +1487,8 @@ struct StreamBam {
           if (budget > 0) {
             comp_consumed.fetch_add((long long)budget,
                                     std::memory_order_relaxed);
+            comp_unread.fetch_add((long long)budget,
+                                  std::memory_order_relaxed);
             budget = 0;
           }
           range_open = false;
@@ -1464,6 +1502,7 @@ struct StreamBam {
       sink.es.clear();
       sink.ee.clear();
       sink.n_rec = 0;
+      sink.n_kept = 0;
       // first window of a range: records start at the chunk voffset's
       // in-block offset, not at the block boundary
       size_t off = walk_skip;
@@ -1500,15 +1539,20 @@ struct StreamBam {
         }
         // the window is sized in compressed bytes; hyper-compressible
         // inputs could inflate it without bound, so also cap the
-        // decompressed side and carry the surplus blocks
+        // decompressed side and carry the surplus blocks. The cap keeps
+        // every block that starts below it, so a window inflates to at
+        // most the cap plus one block: when the last block straddles
+        // the cap, nothing starts past it and the window stays whole.
         size_t dec_cap = window_bytes * 4;
         if (total_out > dec_cap && blocks.size() > 1) {
           size_t keepb = blocks.size();
           while (keepb > 1 && blocks[keepb - 1].out_off >= dec_cap)
             keepb--;
-          consumed = blocks[keepb].src_off;
-          total_out = blocks[keepb].out_off;
-          blocks.resize(keepb);
+          if (keepb < blocks.size()) {
+            consumed = blocks[keepb].src_off;
+            total_out = blocks[keepb].out_off;
+            blocks.resize(keepb);
+          }
         }
         if (consumed < raw_len && src_eof && blocks.empty()) {
           if (!ranged) return fail("truncated BGZF block");
@@ -1519,6 +1563,10 @@ struct StreamBam {
           raw_len = 0;
           consumed = 0;
         }
+        // every trim above cuts at a scanned block's start, so the
+        // compaction below (raw_len -= consumed) cannot underflow
+        if (consumed > raw_len)
+          return fail("BGZF window overrun: consumed past the bytes read");
         if (dec.size() < base_dec + total_out)
           dec.resize(base_dec + total_out);
         grand_total = base_dec + total_out;
@@ -1628,6 +1676,8 @@ struct StreamBam {
         if (budget > 0) {
           comp_consumed.fetch_add((long long)budget,
                                   std::memory_order_relaxed);
+          comp_unread.fetch_add((long long)budget,
+                                std::memory_order_relaxed);
           budget = 0;
         }
         range_open = false;
@@ -1653,6 +1703,7 @@ struct StreamBam {
         w.ee.swap(sink.ee);
         w.n_rec = sink.n_rec;
         total_records += w.n_rec;
+        kept_records += sink.n_kept;
         pairs_produced.fetch_add((long long)w.es.size(),
                                  std::memory_order_relaxed);
         q.push_back(std::move(w));
@@ -1756,6 +1807,7 @@ struct StreamBam {
     s.sink.es.clear();
     s.sink.ee.clear();
     s.sink.n_rec = 0;
+    s.sink.n_kept = 0;
     s.infl = 0;
     using clock = std::chrono::steady_clock;
     auto ns = [](clock::time_point a, clock::time_point b) {
@@ -1883,7 +1935,7 @@ struct StreamBam {
     // the window being gathered: the merging thread's alone
     StreamWin win;
     size_t win_infl = 0;
-    int64_t win_comp = 0, win_splits = 0, n_win = 0;
+    int64_t win_comp = 0, win_splits = 0, n_win = 0, win_kept = 0;
     auto span = [&](int64_t k) -> int64_t {
       return (k + 1 < n_sp ? sv[k + 1] >> 16 : comp_total) -
              (sv[k] >> 16);
@@ -1896,6 +1948,7 @@ struct StreamBam {
       if (stop) return false;
       total_records += win.n_rec;
       split_records += win.n_rec;
+      kept_records += win_kept;
       pairs_produced.fetch_add((long long)win.es.size(),
                                std::memory_order_relaxed);
       if (dbg)
@@ -1918,6 +1971,7 @@ struct StreamBam {
       win_infl = 0;
       win_comp = 0;
       win_splits = 0;
+      win_kept = 0;
       n_win++;
       return true;
     };
@@ -1942,6 +1996,7 @@ struct StreamBam {
         win.ee.insert(win.ee.end(), s->sink.ee.begin(),
                       s->sink.ee.end());
         win.n_rec += s->sink.n_rec;
+        win_kept += s->sink.n_kept;
         win_infl += s->infl;
         win_comp += span(handed);
         win_splits++;
@@ -2499,6 +2554,24 @@ int64_t pancov_stream_split_records(void* h) {
   auto* sb = (StreamBam*)h;
   std::lock_guard<std::mutex> lk(sb->mu);
   return sb->split_records;
+}
+
+// records handed out so far that the -x/-q and region filters kept (of
+// pancov_stream_n_records' count)
+int64_t pancov_stream_kept_records(void* h) {
+  auto* sb = (StreamBam*)h;
+  std::lock_guard<std::mutex> lk(sb->mu);
+  return sb->kept_records;
+}
+
+// compressed bytes the walk has consumed so far: the header's blocks,
+// then every block it walked, and a ranged walk's over-read past each
+// range's end (read, then dropped); the file's size once a whole-file
+// walk has ended
+int64_t pancov_stream_read_bytes(void* h) {
+  auto* sb = (StreamBam*)h;
+  return (int64_t)(sb->comp_consumed.load(std::memory_order_relaxed) -
+                   sb->comp_unread.load(std::memory_order_relaxed));
 }
 
 void pancov_stream_error(void* h, char* err, int err_len) {

@@ -32,6 +32,7 @@ from typing import Dict, Optional
 from pandepth_tpu_torch.config import MODE_BED3, MODE_BED4, MODE_GFF, MODE_GTF
 from pandepth_tpu_torch.targets.model import GeneAccumulator, TargetSet
 from pandepth_tpu_torch.io.text import iter_text_lines
+from pandepth_tpu_torch.utils.log import span
 
 _WS_SPLIT = re.compile(r"[ \t]+")
 
@@ -86,43 +87,47 @@ def _try_native_targets(path: str, feature: str, mode: int,
                         acc: GeneAccumulator) -> bool:
     """Native GFF/GTF/BED tokenize (~15x the Python line loop on a
     175k-segment annotation) feeding the vectorized accumulator.
-    The MODE_* constants match the native mode codes directly."""
+    The MODE_* constants match the native mode codes directly. The
+    tokenize is the run's ``targets.parse`` span, the accumulator's merge
+    of the rows into regions its ``targets.merge``."""
     import os
     if os.environ.get("PANDEPTH_NO_NATIVE") == "1":
         return False
-    try:
-        from pandepth_tpu_torch.io.native import (NativeTargetsLoad,
-                                                  load_library)
-        if load_library() is None:
+    with span("targets.parse"):
+        try:
+            from pandepth_tpu_torch.io.native import (NativeTargetsLoad,
+                                                      load_library)
+            if load_library() is None:
+                return False
+            tl = NativeTargetsLoad(path, feature, mode, chr2tid)
+        except (ValueError, RuntimeError, OSError):
             return False
-        tl = NativeTargetsLoad(path, feature, mode, chr2tid)
-    except (ValueError, RuntimeError, OSError):
-        return False
-    tid, s, e, ids_s = tl.columns()
-    tl.close()
-    acc.add_bulk(tid, ids_s, s, e)
+        tid, s, e, ids_s = tl.columns()
+        tl.close()
+    with span("targets.merge"):
+        acc.add_bulk(tid, ids_s, s, e)
     return True
 
 
 def parse_targets(path: str, mode: int, chr2tid: Dict[str, int],
                   feature: str = "CDS",
                   ref_bases: Optional[Dict[int, bytes]] = None) -> TargetSet:
+    """The targets of ``path``. The native tokenize (or the Python line
+    loop, which merges as it goes) is the run's ``targets.parse`` span;
+    the merge of its rows into regions (``GeneAccumulator``) and the
+    region table's build are its ``targets.merge``."""
     acc = GeneAccumulator(mode, ref_bases)
-    if mode == MODE_GFF:
-        if not _try_native_targets(path, feature, mode, chr2tid, acc):
-            _parse_gff(path, feature, chr2tid, acc)
-    elif mode == MODE_GTF:
-        if not _try_native_targets(path, feature, mode, chr2tid, acc):
-            _parse_gtf(path, feature, chr2tid, acc)
-    elif mode == MODE_BED3:
-        if not _try_native_targets(path, feature, mode, chr2tid, acc):
-            _parse_bed3(path, chr2tid, acc)
-    elif mode == MODE_BED4:
-        if not _try_native_targets(path, feature, mode, chr2tid, acc):
-            _parse_bed4(path, chr2tid, acc)
-    else:
+    parsers = {MODE_GFF: lambda: _parse_gff(path, feature, chr2tid, acc),
+               MODE_GTF: lambda: _parse_gtf(path, feature, chr2tid, acc),
+               MODE_BED3: lambda: _parse_bed3(path, chr2tid, acc),
+               MODE_BED4: lambda: _parse_bed4(path, chr2tid, acc)}
+    if mode not in parsers:
         raise ValueError(f"parse_targets: bad mode {mode}")
-    return acc.build()
+    if not _try_native_targets(path, feature, mode, chr2tid, acc):
+        with span("targets.parse"):
+            parsers[mode]()
+    with span("targets.merge"):
+        return acc.build()
 
 
 def _parse_gff(path: str, feature: str, chr2tid: Dict[str, int],
