@@ -95,25 +95,28 @@ def try_native_load(path: str, config: RunConfig,
         use_stream = os.environ.get("PANDEPTH_STREAM", "1") != "0"
         vranges = None
         if regions is not None and regions[3] == 1:
-            from pandepth_tpu_torch.io.bamindex import (chunks_for_windows,
-                                                        load_index_for)
+            from pandepth_tpu_torch.io.bamindex import (load_index_for,
+                                                        merge_ranges,
+                                                        window_chunks)
             with span("feed.index"):
                 idx = load_index_for(path)
                 if idx is not None:
                     # index-driven block skipping: decompress only the
                     # BGZF blocks whose records can overlap the windows
-                    vranges = chunks_for_windows(idx, regions)
+                    chunks = window_chunks(idx, regions)
+                    vranges = merge_ranges(chunks)
             if vranges is not None and use_stream:
-                # ranged streaming: block skipping with bounded
-                # memory — the producer seeks between merged chunk
-                # ranges instead of one-shot-loading them all
+                # ranged streaming: block skipping with bounded memory,
+                # runs of the merged chunk ranges walked on every thread;
+                # the chunks' starts cut a long range
                 return NativeBamStream(path, config.flags,
                                        config.min_mapq,
                                        threads=config.threads,
                                        ext_offsets=ext_offsets,
                                        ext_limits=ext_limits,
                                        regions=regions,
-                                       vranges=vranges)
+                                       vranges=vranges,
+                                       cuts=np.unique(chunks[:, 0]))
         elif regions is None and not use_stream:
             from pandepth_tpu_torch.io.bamindex import (full_file_splits,
                                                         load_index_for)

@@ -276,10 +276,12 @@ def full_file_splits(index: BamIndex, n_parts: int) -> np.ndarray:
     return np.stack([picks, ends], axis=1)
 
 
-def chunks_for_windows(index: BamIndex, windows) -> np.ndarray:
-    """Merged virtual ranges covering every fetch window
-    ((per_tid_off, starts0, ends0) as produced by
-    TargetSet.fetch_windows).
+def window_chunks(index: BamIndex, windows) -> np.ndarray:
+    """The (n, 2) virtual-offset chunks of every bin that can hold a read
+    overlapping a fetch window ((per_tid_off, starts0, ends0) as produced
+    by TargetSet.fetch_windows), unmerged: :func:`merge_ranges` makes the
+    ranges that cover every window, and the chunks' starts are record
+    starts inside them.
 
     Batched per tid: reg2bins is vectorized over all of a contig's
     windows and the linear-index cut uses the contig-wide minimum, so
@@ -320,4 +322,4 @@ def chunks_for_windows(index: BamIndex, windows) -> np.ndarray:
         parts.append(allc)
     if not parts:
         return np.zeros((0, 2), np.int64)
-    return merge_ranges(np.concatenate(parts))
+    return np.concatenate(parts)

@@ -20,7 +20,9 @@ and it trusted each record's length to fit the offsets it reserved.
 Instead, a whole-file stream given the index's record starts
 (``NativeBamStream(cuts=...)``) walks the splits between them on every
 thread, each split read, inflated and walked by one thread, and checks
-that each split ends on the next cut.
+that each split ends on the next cut; a ranged stream
+(``vranges=...``) walks runs of its ranges the same way, each range
+checked to end on its chunk end.
 """
 
 from __future__ import annotations
@@ -150,8 +152,8 @@ def load_library() -> Optional[ctypes.CDLL]:
             ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
             ctypes.c_int, ctypes.c_void_p, ctypes.c_int64,
-            ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
-            ctypes.c_char_p, ctypes.c_int]
+            ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
+            ctypes.c_int64, ctypes.c_char_p, ctypes.c_int]
         for name, res, args in [
             ("pancov_stream_wait", ctypes.c_int64, [ctypes.c_void_p]),
             ("pancov_stream_win_records", ctypes.c_int64,
@@ -652,13 +654,18 @@ class NativeBamStream:
     RAM stream fine (the reference's htslib-streaming + 10 Mb window
     memory model, src/PanDepth.cpp:676-723, re-done TPU-side).
 
-    ``cuts``: the index's record-start virtual offsets
-    (``bamindex.record_starts``). With them, a whole-file stream (no
-    ``regions``, no ``vranges``) of a BGZF BAM is walked in splits
-    between them on every thread, handed out in file order; a split
-    that does not end on its cut (an index that does not match the
-    file) hands the rest of the stream to the serial walk.
-    :meth:`split_share` says how much went through splits."""
+    ``vranges``: the index's (v0, v1) ranges for a mode-1 region
+    filter; the stream reads only them, each from its first block to the
+    end of its end block. ``cuts``: record-start virtual offsets from the
+    index: for a whole-file stream (no ``regions``, no ``vranges``) its
+    record starts (``bamindex.record_starts``), for a ranged one its
+    chunks' starts (``bamindex.window_chunks``), which cut a range longer
+    than a split. Either way a BGZF BAM is walked in splits on every
+    thread (runs of ranges, or the spans between cuts), handed out in
+    file order; a split that does not end where the index says (an index
+    that does not match the file) hands the rest of the stream to the
+    serial walk. ``serial`` walks the whole stream serially, as with no
+    index. :meth:`split_share` says how much went through splits."""
 
     def __init__(self, path: str, flags_mask: int, min_mapq: int,
                  pad: int = 512, threads: int = 0,
@@ -666,7 +673,8 @@ class NativeBamStream:
                  ext_limits: Optional[np.ndarray] = None,
                  regions=None, vranges: Optional[np.ndarray] = None,
                  window_bytes: int = 0,
-                 cuts: Optional[np.ndarray] = None):
+                 cuts: Optional[np.ndarray] = None,
+                 serial: bool = False):
         from pandepth_tpu_torch.io.bam import BamHeader
 
         lib = load_library()
@@ -720,7 +728,7 @@ class NativeBamStream:
         self._h = lib.pancov_stream_open(
             path.encode(), threads, flags_mask, min_mapq, pad, op, lp,
             ne, rop, rsp, rep, nr, rmode, vrp, nvr, ctp, nct,
-            window_bytes, err, len(err))
+            int(serial), window_bytes, err, len(err))
         del keep  # the C side copies region/layout/cut arrays
         if not self._h:
             raise ValueError(
@@ -843,8 +851,9 @@ class NativeBamStream:
 
     def split_share(self) -> float:
         """The share of the records handed out so far that were walked
-        in index-cut splits: 1.0 when every split ended on its cut, 0.0
-        for a stream without splits (or without records)."""
+        in splits (index-cut or ranged): 1.0 when every split ended where
+        the index says, 0.0 for a serial stream (or one without
+        records)."""
         split = int(self._lib.pancov_stream_split_records(self._h))
         n = self.n_records  # read second: never below ``split``
         return split / n if n else 0.0
@@ -857,10 +866,10 @@ class NativeBamStream:
         return kept / n if n else 0.0
 
     def read_share(self) -> float:
-        """The compressed bytes the walk has consumed so far over the
-        file's size: the header's blocks, every block walked, and a ranged
-        walk's over-read past each range's end (1.0 once a whole-file walk
-        has ended)."""
+        """The compressed bytes the walk has read so far over the file's
+        size: the header's blocks and every block walked, a ranged walk's
+        from each range's first block to the end of its end block (1.0
+        once a whole-file walk has ended)."""
         return int(self._lib.pancov_stream_read_bytes(self._h)) / \
             self._size if self._size else 0.0
 
@@ -875,8 +884,8 @@ class NativeBamStream:
         walk — both producer-side so their ratio projects the final
         pair total consistently (consumer-side window counts lag the
         read-ahead and under-project). The fraction is an estimate:
-        ranged walks over-count the denominator by per-range read
-        slack. Fraction is 0.0 when the total is unknown."""
+        a ranged walk counts each range up to its end block's start.
+        Fraction is 0.0 when the total is unknown."""
         done = ctypes.c_int64(0)
         total = ctypes.c_int64(0)
         pairs = ctypes.c_int64(0)

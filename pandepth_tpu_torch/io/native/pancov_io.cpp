@@ -153,6 +153,20 @@ uint32_t le32(const uint8_t* p) {
          (uint32_t)p[3] << 24;
 }
 
+// BSIZE of the BGZF block whose header (its first xend = 12 + XLEN
+// bytes) is at p; -1 when the header has no BC field, or one smaller
+// than the header and the trailer
+long bgzf_block_size(const uint8_t* p, size_t xend) {
+  long bsize = -1;
+  for (size_t xp = 12; xp + 4 <= xend;) {
+    uint16_t slen = le16(p + xp + 2);
+    if (p[xp] == 'B' && p[xp + 1] == 'C' && slen == 2 && xp + 6 <= xend)
+      bsize = (long)le16(p + xp + 4) + 1;
+    xp += 4 + slen;
+  }
+  return bsize < 0 || (size_t)bsize < xend + 8 ? -1 : bsize;
+}
+
 // Scan BGZF member headers; returns false on malformed framing.
 bool scan_blocks(const std::vector<uint8_t>& raw, std::vector<Block>& blocks,
                  size_t& total_out) {
@@ -163,21 +177,12 @@ bool scan_blocks(const std::vector<uint8_t>& raw, std::vector<Block>& blocks,
     if (p[0] != 0x1f || p[1] != 0x8b) return false;
     if (!(p[3] & 4)) return false;  // FEXTRA required for BGZF
     uint16_t xlen = le16(p + 10);
-    size_t xp = off + 12, xend = xp + xlen;
+    size_t xend = off + 12 + xlen;
     if (xend > n) return false;
-    long bsize = -1;
-    while (xp + 4 <= xend) {
-      uint8_t si1 = raw[xp], si2 = raw[xp + 1];
-      uint16_t slen = le16(raw.data() + xp + 2);
-      if (si1 == 'B' && si2 == 'C' && slen == 2)
-        bsize = (long)le16(raw.data() + xp + 4) + 1;
-      xp += 4 + slen;
-    }
-    // a block must at least hold its own header + CRC32/ISIZE trailer,
-    // or payload_len below underflows size_t
-    if (bsize < 0 || off + (size_t)bsize > n ||
-        (size_t)bsize < (xend - off) + 8)
-      return false;
+    // a block holds at least its own header + CRC32/ISIZE trailer
+    // (bgzf_block_size), or payload_len below would underflow size_t
+    long bsize = bgzf_block_size(p, 12 + xlen);
+    if (bsize < 0 || off + (size_t)bsize > n) return false;
     size_t payload = xend;
     size_t payload_len = off + bsize - 8 - payload;
     uint32_t isize = le32(raw.data() + off + bsize - 4);
@@ -588,6 +593,10 @@ struct EvSink {
   int64_t n_kept = 0;  // records kept by the -x/-q and region filters
   bool track_records = true;  // streaming sinks only count
   std::vector<int64_t> es, ee;
+  // mode 1's monotone cursor (WalkCtx::mono_hint), the walker's own: the
+  // contig of its last record, that record's start, and the first fetch
+  // window of the contig that ends past it (m1_tid -1: none yet)
+  int64_t m1_tid = -1, m1_pos = 0, m1_hint = 0;
 };
 
 // Record filtering + event extraction shared by the one-shot loader
@@ -610,21 +619,17 @@ struct WalkCtx {
   std::vector<uint8_t> chr_done;
   int64_t chrs_left = 0;
   bool stream_done = false;  // the reference `break`s out of the loop
-  // mode-1 monotone window cursor (serial chaser only): fetch
-  // windows are merged, non-overlapping and sorted, and a
-  // coordinate-sorted stream's positions are nondecreasing per tid,
-  // so the overlap test advances a per-tid hint amortized O(1)
-  // instead of a log2(windows) binary search PER RECORD — at 30x
-  // deep gene mode (33k windows/contig, 240M records) the searches
-  // WERE the walk. Non-monotone records (unsorted input) fall back
-  // to the binary search, so semantics never change. MUST stay off
-  // when multiple threads share one ctx (the one-shot parallel ranged
-  // walkers): the hints are stateful. (The stream's index-cut splits
-  // share one ctx across threads only with no region filter, where no
-  // hint is read; this copy of the library has no PANDEPTH_PAR_WALK.)
+  // mode-1 monotone window cursor (the stream's walks): fetch windows
+  // are merged, non-overlapping and sorted, and a coordinate-sorted
+  // stream's positions are nondecreasing within a contig, so the overlap
+  // test advances the sink's cursor amortized O(1) instead of a
+  // log2(windows) binary search PER RECORD — at 30x deep gene mode (33k
+  // windows/contig, 240M records) the searches WERE the walk. A record
+  // on another contig, or before the last (unsorted input), seeds the
+  // cursor by a binary search, so semantics never change. The cursor
+  // lives in the walker's EvSink, so threads that share one ctx (the
+  // stream's splits) never share it.
   bool mono_hint = false;
-  std::vector<int64_t> m1_hint;
-  std::vector<int64_t> m1_last;
 
   void init_cursor() {
     if (n_regions > 0 && region_mode == 2) {
@@ -635,12 +640,6 @@ struct WalkCtx {
         chr_done[t] = reg_off[t] == reg_off[t + 1];
         if (!chr_done[t]) chrs_left++;
       }
-    }
-    if (n_regions > 0 && region_mode == 1) {
-      m1_hint.resize(n_targets);
-      m1_last.assign(n_targets, INT64_MIN);
-      for (int64_t t = 0; t < n_targets; t++)
-        m1_hint[t] = reg_off[t];
     }
   }
 
@@ -687,11 +686,19 @@ struct WalkCtx {
       if (region_mode == 1) {
         // does the read overlap any fetch window of its contig?
         int64_t a = reg_off[tid], b2 = reg_off[tid + 1];
-        if (mono_hint && pos0 >= m1_last[tid]) {
-          int64_t h = m1_hint[tid];
-          while (h < b2 && reg_end[h] <= pos0) h++;
-          m1_hint[tid] = h;
-          m1_last[tid] = pos0;
+        if (mono_hint) {
+          // the first window that ends past pos0 (ends are sorted too)
+          int64_t h;
+          if (sk.m1_tid == tid && pos0 >= sk.m1_pos) {
+            h = sk.m1_hint;
+            while (h < b2 && reg_end[h] <= pos0) h++;
+          } else {
+            h = std::upper_bound(reg_end + a, reg_end + b2, pos0) -
+                reg_end;
+          }
+          sk.m1_tid = tid;
+          sk.m1_pos = pos0;
+          sk.m1_hint = h;
           keep = h < b2 && reg_start[h] < end0;
         } else {
           const int64_t* first = reg_start + a;
@@ -1120,17 +1127,10 @@ bool scan_blocks_partial(const uint8_t* raw, size_t n,
     if (p[0] != 0x1f || p[1] != 0x8b) return false;
     if (!(p[3] & 4)) return false;  // FEXTRA required for BGZF
     uint16_t xlen = le16(p + 10);
-    size_t xp = off + 12, xend = xp + xlen;
+    size_t xend = off + 12 + xlen;
     if (xend + 8 > n) break;  // partial header
-    long bsize = -1;
-    while (xp + 4 <= xend) {
-      uint8_t si1 = raw[xp], si2 = raw[xp + 1];
-      uint16_t slen = le16(raw + xp + 2);
-      if (si1 == 'B' && si2 == 'C' && slen == 2)
-        bsize = (long)le16(raw + xp + 4) + 1;
-      xp += 4 + slen;
-    }
-    if (bsize < 0 || (size_t)bsize < (xend - off) + 8) return false;
+    long bsize = bgzf_block_size(p, 12 + xlen);
+    if (bsize < 0) return false;
     if (off + (size_t)bsize > n) break;  // partial payload
     size_t payload = xend;
     size_t payload_len = off + bsize - 8 - payload;
@@ -1277,12 +1277,16 @@ struct StreamBam {
   std::vector<int64_t> offsets, limits;
   std::vector<int64_t> regs_off, regs_start, regs_end;  // owned copies
   // index-selected virtual-offset ranges (sorted, block-coalesced in
-  // open): when non-empty the producer fseeks between them, streaming
-  // only target-overlapping compressed spans — block skipping with the
+  // open): when non-empty the producer reads only them, each from its
+  // first block to the end of its end block, and walks each range's
+  // records from v0 while they start below v1 — block skipping with the
   // same bounded memory as the sequential walk. Stateless region
   // filtering only (region_mode 1), mirroring the reference's indexed
   // fetch path (src/PanDepth.cpp:4120-4124, :430-434).
   std::vector<int64_t> vr_v0, vr_v1;
+  // walk splits on every thread (walk_splits): the ranges, or the
+  // whole file cut at `cuts`; false: the serial walk alone
+  bool splits = false;
   WalkCtx ctx;
   std::string text;
   std::vector<std::string> names;
@@ -1306,25 +1310,25 @@ struct StreamBam {
   StreamWin cur;
   bool have_cur = false;
   int64_t take_pos = 0;  // encoder cursor into cur (take_enc)
-  // feed-progress estimate for the consumer (drives the device-side
-  // finalize-program warm-up): compressed bytes consumed / total to
-  // consume (whole file, or the ranged walk's selected spans)
+  // feed-progress estimate for the consumer: compressed bytes consumed /
+  // total to consume (the whole file, or the header's blocks and each
+  // range's bytes from its first block to its end block's start)
   std::atomic<long long> comp_consumed{0};
   long long comp_total = 0;
-  // of comp_consumed, the ranged walk's budget bytes settled unread (an
-  // over-reach past EOF, or past the window that closed its range):
-  // comp_consumed less these is what the walk read
-  std::atomic<long long> comp_unread{0};
+  // a ranged walk's compressed bytes read: the header's blocks, then
+  // each range's blocks as its reads took them
+  std::atomic<long long> read_bytes{0};
+  int64_t file_bytes = 0;  // the file's size
   std::atomic<long long> pairs_produced{0};  // event pairs handed off
   // nanoseconds the consumer blocked on the queue (wait_window; read and
   // restarted by pancov_stream_wait_ns); guarded by mu
   int64_t wait_ns = 0;
-  // index-cut splits (walk_splits): the index's record-start virtual
-  // offsets past the header's end, sorted; empty = the serial walk
+  // the index's record-start virtual offsets, sorted: where the splits
+  // of a whole-file stream, or of a long range, may start
   std::vector<int64_t> cuts;
   int64_t hdr_voff = 0;       // virtual offset of the first record
   int64_t split_records = 0;  // records handed out from verified
-                              // splits (guarded by mu)
+                              // splits, cut or ranged (guarded by mu)
   int64_t kept_records = 0;   // records handed out that the filters
                               // kept (guarded by mu)
 
@@ -1360,8 +1364,8 @@ struct StreamBam {
     cv.notify_all();
   }
 
-  // The producer thread. The whole-file stream of an indexed BGZF BAM
-  // walks index-cut splits on every thread (walk_splits); every other
+  // The producer thread. An indexed BGZF BAM's stream, whole-file or
+  // ranged, walks splits on every thread (walk_splits); every other
   // stream, and the rest of a stream whose index did not match its
   // file, is the serial walk (walk_serial). n_threads in all: this
   // thread and the team's n_threads - 1.
@@ -1370,12 +1374,13 @@ struct StreamBam {
     team.start(n_threads - 1);
     const bool dbg = std::getenv("PANDEPTH_STREAM_DEBUG") != nullptr;
     int64_t resume = -1;
-    if (!cuts.empty()) {
-      resume = walk_splits(team, dbg);
+    size_t resume_range = 0;
+    if (splits) {
+      resume = walk_splits(team, dbg, resume_range);
       if (resume == kSplitsStopped) return;
       if (resume == kSplitsDone) return end_stream();
     }
-    walk_serial(team, resume, dbg);
+    walk_serial(team, resume, resume_range, dbg);
   }
 
   static double ms_between(std::chrono::steady_clock::time_point a,
@@ -1386,13 +1391,14 @@ struct StreamBam {
 
   // The serial walk: read a compressed window, inflate its blocks on
   // the team while this thread chases the inflated frontier record by
-  // record. It serves the ranged stream (vr_v0: the region cursor's
-  // mode-2 state and mode 1's monotone hint are stateful, so one
-  // thread walks), a region filter without an index, a BAM without
-  // one, non-BGZF input, and a whole-file stream from `resume` on (a
-  // virtual offset the split walk verified) when a split did not end
-  // on its cut.
-  void walk_serial(WalkTeam& team, int64_t resume, bool dbg) {
+  // record. It serves a region filter without an index (mode 2's
+  // cursor is stateful, so one thread walks), a BAM without one,
+  // non-BGZF input, a stream opened with serial_walk, and the rest of a
+  // split stream from `resume` on when a split failed: a virtual offset
+  // the split walk verified (a record start), in range `resume_range`
+  // of a ranged stream.
+  void walk_serial(WalkTeam& team, int64_t resume, size_t resume_range,
+                   bool dbg) {
     // persistent window buffers: pages fault in once, then stay hot —
     // re-allocating per window costs ~0.25 ms/MB in soft faults, which
     // at GB/s inflate rates dominates the whole pipeline; mapped, so that
@@ -1421,15 +1427,21 @@ struct StreamBam {
     bool range_open = false;
     int64_t budget = -1;    // compressed bytes left in current range
     int64_t raw_abs = 0;    // absolute compressed offset of raw[0]
-    int64_t end_blk = 0;    // compressed offset of the range's last block
+    int64_t end_blk = 0;    // compressed offset of the range's end block
+    size_t end_u = 0;       // the range's end within its end block
+    int64_t prog_left = 0;  // the range's bytes left to count in progress
     size_t walk_skip = 0;   // in-block record offset at range start
+    int64_t next_v0 = -1;   // where the next range opens, if not its v0
     if (ranged) {
       // header-tail carries are irrelevant: every range begins at an
       // index-guaranteed record boundary reached by seek
       raw_len = 0;
       dec_carry = 0;
-    }
-    if (resume >= 0) {
+      if (resume >= 0) {
+        ri = resume_range;
+        next_v0 = resume;
+      }
+    } else if (resume >= 0) {
       if (fseeko(f, (off_t)(resume >> 16), SEEK_SET) != 0)
         return fail("seek failed");
       raw_len = 0;
@@ -1445,16 +1457,21 @@ struct StreamBam {
       if (ctx.stream_done) break;
       if (ranged && !range_open) {
         if (ri >= vr_v0.size()) break;
-        int64_t c0 = vr_v0[ri] >> 16;
-        // the end block starts at v1>>16 and spans <= 64 KiB: budget
-        // the read to cover it fully, truncate the walk at it below
-        int64_t cend = (vr_v1[ri] >> 16) + 66000;
-        walk_skip = (size_t)(vr_v0[ri] & 0xFFFF);
+        const int64_t v0 = next_v0 >= 0 ? next_v0 : vr_v0[ri];
+        next_v0 = -1;
+        int64_t c0 = v0 >> 16;
+        end_blk = vr_v1[ri] >> 16;
+        end_u = (size_t)(vr_v1[ri] & 0xFFFF);
+        // read to the end of the end block, or to its start when the
+        // range ends there
+        int64_t cend = end_u ? block_end(end_blk) : end_blk;
+        if (cend < 0) return fail("bad BGZF framing");
+        walk_skip = (size_t)(v0 & 0xFFFF);
         if (fseeko(f, (off_t)c0, SEEK_SET) != 0)
           return fail("seek failed");
         budget = cend - c0;
+        prog_left = end_blk - c0;
         raw_abs = c0;
-        end_blk = vr_v1[ri] >> 16;
         raw_len = 0;
         dec_carry = 0;
         src_eof = false;
@@ -1477,20 +1494,14 @@ struct StreamBam {
                                        f)
                           : 0;
         raw_len += got;
-        if (ranged) budget -= (int64_t)got;
+        if (ranged) {
+          budget -= (int64_t)got;
+          read_bytes.fetch_add((long long)got, std::memory_order_relaxed);
+        }
         if (got < want || (ranged && budget <= 0)) src_eof = true;
       }
       if (raw_len == 0 && dec_carry == 0 && src_eof) {
         if (ranged) {
-          // budget bytes never read (end-block truncation / EOF) are
-          // still in comp_total: settle them so frac converges
-          if (budget > 0) {
-            comp_consumed.fetch_add((long long)budget,
-                                    std::memory_order_relaxed);
-            comp_unread.fetch_add((long long)budget,
-                                  std::memory_order_relaxed);
-            budget = 0;
-          }
           range_open = false;
           continue;
         }
@@ -1508,6 +1519,7 @@ struct StreamBam {
       size_t off = walk_skip;
       walk_skip = 0;
       size_t grand_total = base_dec;
+      size_t walk_end = SIZE_MAX;  // the range's end, once its block is in
       size_t consumed = 0;
       bool walk_failed = false;
       auto t2 = t1;
@@ -1517,26 +1529,6 @@ struct StreamBam {
         if (!scan_blocks_partial(raw.data(), raw_len, blocks,
                                  total_out, consumed))
           return fail("bad BGZF framing");
-        if (ranged) {
-          // never walk past the range's last block: blocks beyond it
-          // were only read because the budget over-reaches by one
-          // max-size block — drop them and close the range
-          size_t keepb = blocks.size();
-          while (keepb > 0 &&
-                 raw_abs + (int64_t)blocks[keepb - 1].src_off > end_blk)
-            keepb--;
-          if (keepb < blocks.size()) {
-            consumed = blocks[keepb].src_off;
-            total_out = blocks[keepb].out_off;
-            blocks.resize(keepb);
-            // the discarded over-read tail still counts toward the
-            // progress estimate: comp_total budgets it (+66000/range)
-            comp_consumed.fetch_add((long long)(raw_len - consumed),
-                                    std::memory_order_relaxed);
-            raw_len = consumed;  // discard the over-read tail
-            src_eof = true;
-          }
-        }
         // the window is sized in compressed bytes; hyper-compressible
         // inputs could inflate it without bound, so also cap the
         // decompressed side and carry the surplus blocks. The cap keeps
@@ -1554,19 +1546,15 @@ struct StreamBam {
             blocks.resize(keepb);
           }
         }
-        if (consumed < raw_len && src_eof && blocks.empty()) {
-          if (!ranged) return fail("truncated BGZF block");
-          // ranged read budgets over-reach into the block after the
-          // range's last: a partial trailing block there is expected
-          comp_consumed.fetch_add((long long)raw_len,
-                                  std::memory_order_relaxed);
-          raw_len = 0;
-          consumed = 0;
-        }
+        if (consumed < raw_len && src_eof && blocks.empty())
+          return fail("truncated BGZF block");
         // every trim above cuts at a scanned block's start, so the
         // compaction below (raw_len -= consumed) cannot underflow
         if (consumed > raw_len)
           return fail("BGZF window overrun: consumed past the bytes read");
+        if (ranged && end_u && !blocks.empty() &&
+            raw_abs + (int64_t)blocks.back().src_off == end_blk)
+          walk_end = base_dec + blocks.back().out_off + end_u;
         if (dec.size() < base_dec + total_out)
           dec.resize(base_dec + total_out);
         grand_total = base_dec + total_out;
@@ -1620,7 +1608,8 @@ struct StreamBam {
           }
           return true;
         };
-        while (off + 4 <= grand_total && !ctx.stream_done) {
+        while (off + 4 <= grand_total && off < walk_end &&
+               !ctx.stream_done) {
           if (!wait_ready(std::min(grand_total, off + 4))) break;
           uint32_t bsz = le32(dec.data() + off);
           if (off + 4 + (size_t)bsz > grand_total) break;
@@ -1662,24 +1651,22 @@ struct StreamBam {
                      raw_len - consumed);
       raw_len -= consumed;
       raw_abs += (int64_t)consumed;
-      comp_consumed.fetch_add((long long)consumed,
-                              std::memory_order_relaxed);
+      int64_t prog = (int64_t)consumed;
+      if (ranged) {
+        prog = std::min(prog, prog_left);
+        prog_left -= prog;
+      }
+      comp_consumed.fetch_add((long long)prog, std::memory_order_relaxed);
       bool range_done = src_eof && raw_len == 0;
       bool last = ctx.stream_done ||
                   (range_done && (!ranged || ri >= vr_v0.size()));
       if (ctx.stream_done) {
         dec_carry = 0;
       } else if (ranged && range_done) {
-        // a record split across the range end lies past the last
-        // relevant record (index chunks bound complete records): drop
+        // the range's bytes past its last record (the end block's tail,
+        // or a record split across the range end) hold no record that
+        // it asks for: drop them
         dec_carry = 0;
-        if (budget > 0) {
-          comp_consumed.fetch_add((long long)budget,
-                                  std::memory_order_relaxed);
-          comp_unread.fetch_add((long long)budget,
-                                std::memory_order_relaxed);
-          budget = 0;
-        }
         range_open = false;
       } else {
         dec_carry = off < grand_total ? grand_total - off : 0;
@@ -1729,21 +1716,28 @@ struct StreamBam {
     end_stream();
   }
 
-  // ---- index-cut splits -------------------------------------------
-  // The whole-file stream of an indexed BGZF BAM with no region filter
-  // is cut at the index's record starts (its chunk starts) into splits
-  // of about 1 / kSplitShare of a window inflated. Each thread takes the
-  // next split in file order and walks it alone: it reads the split's
-  // compressed bytes, inflates them block by block into a buffer of its
-  // own and walks each block's records while the block is still in its
-  // cache. No thread chases another's freshly inflated bytes, which is
-  // what bounds the serial walk (its one walker reads blocks other
-  // cores just wrote). Splits are handed out strictly in file order,
-  // gathered into windows of the serial walk's size, and a split counts
-  // only when its walk ended exactly on the next cut: a split of an
-  // index that does not match its BAM (another file's, or a stale one)
-  // ends elsewhere, and the serial walk takes over from the last
-  // verified offset, so the events are the serial walk's either way.
+  // ---- splits ------------------------------------------------------
+  // An indexed BGZF BAM's stream is walked in splits on every thread. A
+  // split is a list of pieces, each a virtual-offset span [v0, v1) that
+  // starts on a record. The whole-file stream (no region filter) is cut
+  // at the index's record starts (its chunk starts) into one-piece
+  // splits of about 1 / kSplitShare of a window inflated; the ranged
+  // stream's splits are runs of consecutive ranges of about that size,
+  // so that thousands of one-block ranges cost a task each, not a cycle
+  // each. Each thread takes the next split in file order and walks it
+  // alone: it reads each piece's compressed bytes with reads of its own,
+  // from the piece's first block to the end of its end block (never a
+  // byte between two pieces), inflates them block by block into a buffer
+  // of its own and walks each block's records while the block is still
+  // in its cache. No thread chases another's freshly inflated bytes,
+  // which is what bounds the serial walk (its one walker reads blocks
+  // other cores just wrote). Splits are handed out strictly in file
+  // order, gathered into windows of the serial walk's size, and a split
+  // counts only when the walk of each of its pieces ended exactly on the
+  // piece's end: a split of an index that does not match its BAM
+  // (another file's, or a stale one) ends elsewhere, and the serial walk
+  // takes over from the split's start, so the events are the serial
+  // walk's either way.
   static constexpr int64_t kSplitsDone = -2;
   static constexpr int64_t kSplitsStopped = -3;
   // a split's target inflated size is window_bytes / kSplitShare: at the
@@ -1754,61 +1748,113 @@ struct StreamBam {
   // per thread
   static constexpr int64_t kSplitsAhead = 2;
 
+  // a split's piece: records from v0 to v1 (v1 < 0: to the file's end),
+  // of range `range` in a ranged stream
+  struct Piece {
+    int64_t v0, v1;
+    size_t range;
+  };
+
   struct SplitSlot {
     EvSink sink;
     std::vector<uint8_t> comp, dec;  // persistent: no page churn
     int64_t k = -1;   // the split it holds
-    int state = 0;    // 0 free or walking, 1 ended on its cut, 2 did not
+    int state = 0;    // 0 free or walking, 1 ended on its end, 2 did not
     size_t infl = 0;  // bytes inflated
+    int64_t read = 0;  // compressed bytes read
     int64_t read_ns = 0, inflate_ns = 0, walk_ns = 0;  // debug timing
   };
 
-  // the split starts: the header's end, then cuts at least `step`
-  // compressed bytes apart, where `step` is the compressed span of
-  // window_bytes / kSplitShare inflated at the ratio of the first MB
-  // after the header
-  std::vector<int64_t> split_starts() {
+  // The splits: their pieces in file order, each split's first piece
+  // (first[k] to first[k + 1]; the last entry is the pieces' count) and
+  // the compressed bytes each adds to the progress. A split's target is
+  // the compressed span of window_bytes / kSplitShare inflated, at the
+  // ratio of the first MB after the header: cuts at least that far
+  // apart, or consecutive ranges whose spans (each with its end block,
+  // taken at that MB's mean block size) add up to it, a range longer
+  // than that cut at the cuts inside it.
+  void plan_splits(std::vector<Piece>& pieces, std::vector<int64_t>& first,
+                   std::vector<int64_t>& prog) {
     std::vector<uint8_t> buf(1 << 20);
     ssize_t got = pread(fileno(f), buf.data(), buf.size(),
                         (off_t)(hdr_voff >> 16));
     std::vector<Block> blocks;
     size_t out = 0, used = 0;
     double ratio = 1.0;
+    int64_t blk = 1 << 16;
     if (got > 0 &&
         scan_blocks_partial(buf.data(), (size_t)got, blocks, out, used) &&
-        used > 0 && out > 0)
+        used > 0 && out > 0) {
       ratio = (double)out / (double)used;
+      blk = (int64_t)(used / blocks.size());
+    }
     int64_t step =
         (int64_t)((double)(window_bytes / kSplitShare) / ratio);
     if (step < 1) step = 1;
-    std::vector<int64_t> sv{hdr_voff};
-    for (int64_t c : cuts)
-      if (c > sv.back() && (c >> 16) - (sv.back() >> 16) >= step)
-        sv.push_back(c);
-    return sv;
+    if (vr_v0.empty()) {
+      std::vector<int64_t> sv{hdr_voff};
+      for (int64_t c : cuts)
+        if (c > sv.back() && (c >> 16) - (sv.back() >> 16) >= step)
+          sv.push_back(c);
+      const size_t n = sv.size();
+      for (size_t k = 0; k < n; k++) {
+        pieces.push_back({sv[k], k + 1 < n ? sv[k + 1] : -1, 0});
+        first.push_back((int64_t)k);
+        prog.push_back((k + 1 < n ? sv[k + 1] >> 16 : file_bytes) -
+                       (sv[k] >> 16));
+      }
+    } else {
+      int64_t acc = step;
+      size_t ci = 0;
+      for (size_t i = 0; i < vr_v0.size(); i++) {
+        int64_t v0 = vr_v0[i];
+        const int64_t v1 = vr_v1[i];
+        while (ci < cuts.size() && cuts[ci] <= v0) ci++;
+        for (;;) {
+          while (ci < cuts.size() && cuts[ci] < v1 &&
+                 (cuts[ci] >> 16) - (v0 >> 16) < step)
+            ci++;
+          const int64_t e = ci < cuts.size() && cuts[ci] < v1 ? cuts[ci]
+                                                              : v1;
+          if (acc >= step) {
+            first.push_back((int64_t)pieces.size());
+            prog.push_back(0);
+            acc = 0;
+          }
+          acc += (e >> 16) - (v0 >> 16) + ((e & 0xFFFF) ? blk : 0);
+          prog.back() += (e >> 16) - (v0 >> 16);
+          pieces.push_back({v0, e, i});
+          if (e == v1) break;
+          v0 = e;
+        }
+      }
+    }
+    first.push_back((int64_t)pieces.size());
   }
 
-  // Walk split k, [sv[k], sv[k + 1]) or from sv[k] to EOF for the last,
-  // into s.sink. True when the walk ended exactly on the next cut (the
-  // last split: on a record's end at EOF); false on anything else: a
-  // record across the cut, no block at the cut's offset, a bad block or
-  // record, a read past EOF, or more than `cap` bytes inflated.
-  bool walk_split(const std::vector<int64_t>& sv, int64_t k,
-                  SplitSlot& s, size_t cap, bool dbg) {
-    const bool last = k + 1 == (int64_t)sv.size();
-    const uint64_t c0 = (uint64_t)sv[k] >> 16;
-    const size_t u0 = (size_t)(sv[k] & 0xFFFF);
-    const uint64_t c1 = last ? UINT64_MAX : (uint64_t)sv[k + 1] >> 16;
-    const size_t u1 = last ? 0 : (size_t)(sv[k + 1] & 0xFFFF);
-    // a BGZF block spans at most 64 KiB: the block at c1 ends by then
-    const uint64_t fsize = (uint64_t)comp_total;
-    const uint64_t lim = last ? fsize : std::min(fsize, c1 + 65536);
+  // Walk piece pc into s.sink. True when the walk ended exactly on v1
+  // (to the file's end: on a record's end at EOF); false on anything
+  // else: a record across v1, no block at v1's offset, a bad block or
+  // record, a read past EOF, or more than `cap` bytes inflated by the
+  // split.
+  bool walk_piece(const Piece& pc, SplitSlot& s, size_t cap, bool dbg) {
+    const bool to_eof = pc.v1 < 0;
+    const uint64_t c0 = (uint64_t)pc.v0 >> 16;
+    const size_t u0 = (size_t)(pc.v0 & 0xFFFF);
+    const uint64_t c1 = to_eof ? UINT64_MAX : (uint64_t)pc.v1 >> 16;
+    const size_t u1 = to_eof ? 0 : (size_t)(pc.v1 & 0xFFFF);
+    const uint64_t fsize = (uint64_t)file_bytes;
+    // a ranged piece reads nothing past its end block: its reads end at
+    // that block's header (at its start when the piece ends there) until
+    // the header gives the block's size. A whole-file split reads on
+    // into the next split's bytes, as far as a block past its cut can
+    // reach (a BGZF block spans at most 64 KiB)
+    const bool exact = !vr_v0.empty();
+    uint64_t lim = to_eof ? fsize
+                   : std::min<uint64_t>(fsize, !exact ? c1 + 65536
+                                               : u1   ? c1 + 18
+                                                      : c1);
     const int fd = fileno(f);
-    s.sink.es.clear();
-    s.sink.ee.clear();
-    s.sink.n_rec = 0;
-    s.sink.n_kept = 0;
-    s.infl = 0;
     using clock = std::chrono::steady_clock;
     auto ns = [](clock::time_point a, clock::time_point b) {
       return (int64_t)std::chrono::duration_cast<
@@ -1837,40 +1883,36 @@ struct StreamBam {
         if (got <= 0) break;
         clen += (size_t)got;
         want -= (size_t)got;
+        s.read += got;
       }
       if (dbg) s.read_ns += ns(t0, clock::now());
       return clen - cpos >= need;
     };
-    // inflated bytes [dbase, lin) of the split's linear stream (offset
+    // inflated bytes [dbase, lin) of the piece's linear stream (offset
     // 0 = block c0's first byte) are in s.dec; lin is the end of the
     // blocks inflated so far
     size_t lin = 0, dbase = 0;
     size_t rec = u0;  // the next record's start
-    size_t target = SIZE_MAX;  // the next cut, once its block is seen
+    size_t target = SIZE_MAX;  // the piece's end, once its block is seen
     for (bool first = true;; first = false) {
       const uint64_t boff = cbase + cpos;
       if (boff == c1) {
         target = lin + u1;
-        if (rec == target) return true;  // u1 == 0: the cut's block
-                                         // need not be inflated
+        if (rec == target) return true;  // u1 == 0: the end block
+                                         // need not be read
       } else if (boff > c1) {
         return false;
       }
-      if (!fill(18)) return last && clen == cpos && rec == lin;
+      if (!fill(18)) return to_eof && clen == cpos && rec == lin;
       const uint8_t* p = s.comp.data() + cpos;
       if (p[0] != 0x1f || p[1] != 0x8b || !(p[3] & 4)) return false;
       const size_t xend = 12 + (size_t)le16(p + 10);
+      if (boff == c1 && exact) lim = std::min<uint64_t>(fsize, c1 + xend);
       if (!fill(xend)) return false;
-      p = s.comp.data() + cpos;
-      long bsize = -1;
-      for (size_t xp = 12; xp + 4 <= xend;) {
-        uint16_t slen = le16(p + xp + 2);
-        if (p[xp] == 'B' && p[xp + 1] == 'C' && slen == 2)
-          bsize = (long)le16(p + xp + 4) + 1;
-        xp += 4 + slen;
-      }
-      if (bsize < 0 || (size_t)bsize < xend + 8 || !fill((size_t)bsize))
-        return false;
+      const long bsize = bgzf_block_size(s.comp.data() + cpos, xend);
+      if (bsize < 0) return false;
+      if (boff == c1 && exact) lim = std::min<uint64_t>(fsize, c1 + bsize);
+      if (!fill((size_t)bsize)) return false;
       p = s.comp.data() + cpos;
       const uint32_t isize = le32(p + bsize - 4);
       if ((boff == c1 && u1 > isize) || (first && u0 > isize))
@@ -1898,7 +1940,7 @@ struct StreamBam {
       while (rec + 4 <= lin && rec != target) {
         const size_t end =
             rec + 4 + (size_t)le32(s.dec.data() + (rec - dbase));
-        if (end > target) return false;  // a record across the cut
+        if (end > target) return false;  // a record across the end
         if (end > lin) break;            // it ends in a later block
         size_t nxt = ctx.process_record(s.dec.data(), dlen, rec - dbase,
                                         s.sink);
@@ -1914,16 +1956,35 @@ struct StreamBam {
     }
   }
 
+  // Walk the pieces [p0, p1) of a split into s.sink, each from its own
+  // start; true when every one ended on its end (walk_piece)
+  bool walk_split(const std::vector<Piece>& pieces, int64_t p0,
+                  int64_t p1, SplitSlot& s, size_t cap, bool dbg) {
+    s.sink.es.clear();
+    s.sink.ee.clear();
+    s.sink.n_rec = 0;
+    s.sink.n_kept = 0;
+    s.sink.m1_tid = -1;
+    s.infl = 0;
+    s.read = 0;
+    for (int64_t p = p0; p < p1; p++)
+      if (!walk_piece(pieces[p], s, cap, dbg)) return false;
+    return true;
+  }
+
   // Walk the splits on every thread and hand them out in file order.
   // Returns kSplitsDone at the stream's end, kSplitsStopped when the
-  // consumer closed the stream, or the virtual offset from which the
-  // serial walk goes on: the start of the first split that did not end
-  // on its cut (every split before it did, so that offset is a record
-  // start).
-  int64_t walk_splits(WalkTeam& team, bool dbg) {
+  // consumer closed the stream, or where the serial walk goes on: the
+  // virtual offset at which the first split that did not end on its end
+  // starts (a range's start, or a cut that the split before it ended on),
+  // with that offset's range in `resume_range` for a ranged stream.
+  int64_t walk_splits(WalkTeam& team, bool dbg, size_t& resume_range) {
     const auto t_start = std::chrono::steady_clock::now();
-    const std::vector<int64_t> sv = split_starts();
-    const int64_t n_sp = (int64_t)sv.size();
+    const bool ranged = !vr_v0.empty();
+    std::vector<Piece> pieces;
+    std::vector<int64_t> first, prog;
+    plan_splits(pieces, first, prog);
+    const int64_t n_sp = (int64_t)first.size() - 1;
     const int64_t ring = kSplitsAhead * n_threads;
     const size_t cap = window_bytes * 4;  // the serial walk's dec cap
     std::vector<SplitSlot> slots(ring);
@@ -1936,10 +1997,6 @@ struct StreamBam {
     StreamWin win;
     size_t win_infl = 0;
     int64_t win_comp = 0, win_splits = 0, n_win = 0, win_kept = 0;
-    auto span = [&](int64_t k) -> int64_t {
-      return (k + 1 < n_sp ? sv[k + 1] >> 16 : comp_total) -
-             (sv[k] >> 16);
-    };
     // hand `win` to the consumer (false: the stream was closed)
     auto push = [&]() -> bool {
       const auto t0 = std::chrono::steady_clock::now();
@@ -1998,10 +2055,11 @@ struct StreamBam {
         win.n_rec += s->sink.n_rec;
         win_kept += s->sink.n_kept;
         win_infl += s->infl;
-        win_comp += span(handed);
+        win_comp += ranged ? s->read : prog[handed];
         win_splits++;
-        comp_consumed.fetch_add((long long)span(handed),
+        comp_consumed.fetch_add((long long)prog[handed],
                                 std::memory_order_relaxed);
+        read_bytes.fetch_add((long long)s->read, std::memory_order_relaxed);
         bool full;
         {
           std::lock_guard<std::mutex> lk(sm);
@@ -2038,7 +2096,7 @@ struct StreamBam {
           k = next_k++;
         }
         SplitSlot& s = slots[k % ring];
-        bool ok = walk_split(sv, k, s, cap, dbg);
+        bool ok = walk_split(pieces, first[k], first[k + 1], s, cap, dbg);
         {
           std::lock_guard<std::mutex> lk(sm);
           s.k = k;
@@ -2057,6 +2115,8 @@ struct StreamBam {
       if (stop) halt = true;
     }
     if (!halt && bad_k >= 0 && win_splits > 0 && !push()) halt = true;
+    const int64_t resume = bad_k < 0 ? -1 : pieces[first[bad_k]].v0;
+    if (bad_k >= 0) resume_range = pieces[first[bad_k]].range;
     if (dbg) {
       int64_t rd = 0, inf = 0, wk = 0;
       for (auto& sl : slots) {
@@ -2067,15 +2127,32 @@ struct StreamBam {
       std::fprintf(stderr,
                    "[stream] splits=%lld walked=%lld threads=%d "
                    "windows=%lld wall=%.1fms read=%.1fms inflate=%.1fms "
-                   "walk=%.1fms (thread time) fallback_at=%lld\n",
+                   "walk=%.1fms (thread time) fallback_at=%lld "
+                   "pieces=%lld\n",
                    (long long)n_sp, (long long)handed, n_threads,
                    (long long)n_win,
                    ms_between(t_start, std::chrono::steady_clock::now()),
-                   rd / 1e6, inf / 1e6, wk / 1e6,
-                   (long long)(bad_k >= 0 ? sv[bad_k] : -1));
+                   rd / 1e6, inf / 1e6, wk / 1e6, (long long)resume,
+                   (long long)pieces.size());
     }
     if (halt) return kSplitsStopped;
-    return bad_k >= 0 ? sv[bad_k] : kSplitsDone;
+    return bad_k >= 0 ? resume : kSplitsDone;
+  }
+
+  // the end of the BGZF block at compressed offset c, from the BSIZE in
+  // its header; -1 when no block header is there
+  int64_t block_end(int64_t c) {
+    std::vector<uint8_t> h(18);
+    const int fd = fileno(f);
+    if (pread(fd, h.data(), 18, (off_t)c) != 18) return -1;
+    if (h[0] != 0x1f || h[1] != 0x8b || !(h[3] & 4)) return -1;
+    const size_t xend = 12 + (size_t)le16(h.data() + 10);
+    if (xend > h.size()) {
+      h.resize(xend);
+      if (pread(fd, h.data(), xend, (off_t)c) != (ssize_t)xend) return -1;
+    }
+    const long bsize = bgzf_block_size(h.data(), xend);
+    return bsize < 0 ? -1 : c + bsize;
   }
 };
 
@@ -2085,13 +2162,16 @@ extern "C" {
 
 // Streaming counterpart of pancov_bam_load (same layout/region
 // semantics). window_bytes <= 0 selects the default (32 MB compressed
-// per window; peak RSS ~ 2 windows). vr: n_vr merged (v0, v1) virtual-
+// per window; peak RSS ~ 2 windows). vr: n_vr sorted (v0, v1) virtual-
 // offset pairs from the index — when given (region_mode 1 + BGZF only)
-// the producer seeks between them, inflating only target-overlapping
-// spans: the reference's sam_itr block skipping with bounded memory.
+// the producer reads only them, inflating only target-overlapping
+// blocks: the reference's sam_itr block skipping with bounded memory.
 // cuts: n_cuts record-start virtual offsets from the index (its chunk
-// starts); on a BGZF file with no region filter and no vr the producer
-// walks the splits between them on every thread (walk_splits).
+// starts), for a BGZF file with no region filter, or inside the vr
+// ranges. The ranges (a long one cut at the cuts inside it), or the
+// splits between the cuts, are walked on every thread (walk_splits)
+// unless serial_walk is nonzero: then one thread walks the stream in
+// file order (walk_serial), as with no index.
 void* pancov_stream_open(const char* path, int n_threads,
                          uint32_t flags_mask, int32_t min_mapq,
                          int64_t pad, const int64_t* ext_offsets,
@@ -2101,8 +2181,8 @@ void* pancov_stream_open(const char* path, int n_threads,
                          const int64_t* reg_end, int64_t n_regions,
                          int region_mode, const int64_t* vr,
                          int64_t n_vr, const int64_t* cuts,
-                         int64_t n_cuts, int64_t window_bytes,
-                         char* err, int err_len) {
+                         int64_t n_cuts, int serial_walk,
+                         int64_t window_bytes, char* err, int err_len) {
   auto* sb = new StreamBam();
   auto fail0 = [&](const char* msg) -> void* {
     if (err && err_len > 0) std::snprintf(err, err_len, "%s", msg);
@@ -2211,26 +2291,17 @@ void* pancov_stream_open(const char* path, int n_threads,
   sb->ctx.limits = sb->limits.data();
   sb->ctx.n_targets = (int64_t)sb->offsets.size();
   sb->ctx.init_cursor();
-  // mode 1's monotone hint: a region filter keeps the serial walk,
-  // where one thread walks every record in file order
+  // mode 1's monotone cursor: each walker keeps its own (EvSink)
   sb->ctx.mono_hint = true;
 
-  // ranged streaming: sorted (v0, v1) pairs, coalesced so that no two
-  // ranges share (or nearly share) a compressed block — each range's
-  // read budget over-reaches ~66 KB past its end block, so gaps below
-  // 128 KB are cheaper to read through than to seek over (and merging
-  // them guarantees no block is ever walked twice). Measured both
-  // ways at 30x deep-gene density (ranges every ~27 KB): block-exact
-  // ranges pay ~150 us of per-range producer-cycle fixed cost (113k
-  // ranges = +4 s on the SPARSE 8M gene row, no gain on the dense
-  // one), so read-through wins on the dev host even though merged gap
-  // blocks get inflated + walked.
+  // ranged streaming: sorted (v0, v1) pairs; a range that starts in or
+  // before the previous range's end block joins it, so that no block
+  // belongs to two ranges and none is walked twice
   if (n_vr > 0 && region_mode == 1 && sb->bgzf) {
     for (int64_t i = 0; i < n_vr; i++) {
       int64_t v0 = vr[2 * i], v1 = vr[2 * i + 1];
       if (v1 <= v0) continue;
-      if (!sb->vr_v0.empty() &&
-          (v0 >> 16) <= (sb->vr_v1.back() >> 16) + (128 << 10)) {
+      if (!sb->vr_v0.empty() && (v0 >> 16) <= (sb->vr_v1.back() >> 16)) {
         if (v1 > sb->vr_v1.back()) sb->vr_v1.back() = v1;
       } else {
         sb->vr_v0.push_back(v0);
@@ -2239,31 +2310,41 @@ void* pancov_stream_open(const char* path, int n_threads,
     }
   }
 
-  // total compressed bytes the walk will consume: the selected ranged
-  // spans (each range's read budget over-reaches ~66 KB, matched in
-  // produce()), or the whole file
-  if (!sb->vr_v0.empty()) {
-    long long tot = (long long)sb->comp_consumed.load();
-    for (size_t i = 0; i < sb->vr_v0.size(); i++)
-      tot += ((sb->vr_v1[i] >> 16) + 66000) - (sb->vr_v0[i] >> 16);
-    sb->comp_total = tot;
-  } else {
+  {
     off_t cur = ftello(sb->f);
     if (cur >= 0 && fseeko(sb->f, 0, SEEK_END) == 0) {
-      sb->comp_total = (long long)ftello(sb->f);
+      sb->file_bytes = (int64_t)ftello(sb->f);
       fseeko(sb->f, cur, SEEK_SET);
     }
   }
+  // total compressed bytes the progress counts: the header's blocks and
+  // each range from its first block to its end block's start, or the
+  // whole file
+  if (!sb->vr_v0.empty()) {
+    long long tot = (long long)sb->comp_consumed.load();
+    // a ranged walk has read the header's blocks (its parse read ahead)
+    const int64_t h = sb->hdr_voff;
+    const int64_t hdr_end = (h & 0xFFFF) ? sb->block_end(h >> 16) : h >> 16;
+    sb->read_bytes.store(hdr_end < 0 ? h >> 16 : hdr_end,
+                         std::memory_order_relaxed);
+    for (size_t i = 0; i < sb->vr_v0.size(); i++)
+      tot += (sb->vr_v1[i] >> 16) - (sb->vr_v0[i] >> 16);
+    sb->comp_total = tot;
+  } else {
+    sb->comp_total = sb->file_bytes;
+  }
 
-  // index-cut splits: the whole-file stream of a seekable BGZF file
-  // with no region filter (the region cursor and mode 1's hint are
-  // stateful, and a ranged stream reads only its spans)
-  if (n_cuts > 0 && sb->bgzf && n_regions == 0 && sb->vr_v0.empty() &&
-      sb->comp_total > 0) {
+  // splits: the ranges (a long one cut at the cuts inside it), or the
+  // whole-file stream of a seekable BGZF file with no region filter cut
+  // at the index's record starts (the region cursor is stateful)
+  if (!serial_walk && sb->bgzf && sb->file_bytes > 0 &&
+      (!sb->vr_v0.empty() || (n_cuts > 0 && n_regions == 0))) {
     sb->cuts.assign(cuts, cuts + n_cuts);
     std::sort(sb->cuts.begin(), sb->cuts.end());
-    sb->comp_consumed.store((long long)(sb->hdr_voff >> 16),
-                            std::memory_order_relaxed);
+    if (sb->vr_v0.empty())
+      sb->comp_consumed.store((long long)(sb->hdr_voff >> 16),
+                              std::memory_order_relaxed);
+    sb->splits = true;
   }
 
   sb->producer = std::thread([sb] { sb->produce(); });
@@ -2292,9 +2373,9 @@ int64_t pancov_stream_win_records(void* h) {
 }
 
 // compressed-byte progress of the producer walk: an ESTIMATE for
-// consumer-side planning (finalize-program warm-up), not an exact
-// accounting — `total` over-counts ranged walks by the per-range read
-// budget slack and `done` trails the records actually handed over
+// consumer-side planning, not an exact accounting — a ranged walk counts
+// each range up to its end block's start, and `done` trails the records
+// actually handed over
 void pancov_stream_progress(void* h, int64_t* done, int64_t* total,
                             int64_t* pairs) {
   auto* sb = (StreamBam*)h;
@@ -2564,14 +2645,14 @@ int64_t pancov_stream_kept_records(void* h) {
   return sb->kept_records;
 }
 
-// compressed bytes the walk has consumed so far: the header's blocks,
-// then every block it walked, and a ranged walk's over-read past each
-// range's end (read, then dropped); the file's size once a whole-file
-// walk has ended
+// compressed bytes the walk has read so far: the header's blocks, then
+// every block it walked (a ranged walk: each range's reads, from its
+// first block to the end of its end block); the file's size once a
+// whole-file walk has ended
 int64_t pancov_stream_read_bytes(void* h) {
   auto* sb = (StreamBam*)h;
-  return (int64_t)(sb->comp_consumed.load(std::memory_order_relaxed) -
-                   sb->comp_unread.load(std::memory_order_relaxed));
+  return (int64_t)(sb->vr_v0.empty() ? sb->comp_consumed.load()
+                                     : sb->read_bytes.load());
 }
 
 void pancov_stream_error(void* h, char* err, int err_len) {

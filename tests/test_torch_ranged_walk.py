@@ -10,16 +10,19 @@ way:
 - ``straddle``: a ranged walk (``-g`` with a ``.bai``) whose second window
   ends on a block that starts below the cap and ends above it;
 - ``boundary``: a block starts exactly at the cap;
-- ``range_end``: the range's last block straddles the cap in the window
-  that also reads past the range's end, and the over-read holds only part
-  of the next block;
+- ``range_end``: the range's last block straddles the cap, and the next
+  block, which no gene asks for, is stored, so that a walk that read
+  66,000 bytes past the range's end block would take only part of it;
 - and a whole-file serial walk (no index) whose first window's last whole
   block straddles the cap.
 
 Each case runs the port's CLI in a process of its own under a time limit
 (a walk that loses its place may hang rather than fail) and holds its
 gene table byte-equal to the plain NumPy reference of the benchmark
-(``portbench/reference/pandepth.py``).
+(``portbench/reference/pandepth.py``). The CLI walks a ranged stream in
+splits on every thread; ``test_torch_ranged_splits.test_cap_layouts``
+holds the serial ranged walk to the split walk on the three ranged
+layouts.
 """
 
 import os

@@ -218,7 +218,7 @@ def _cli(bam, out, extra, capsys):
 @pytest.mark.parametrize("index,extra,share", [
     (True, [], 1.0),           # chr mode: the split walk
     (False, [], 0.0),          # no index: the serial walk
-    (True, ["-b", "{bed}"], 0.0),   # the ranged stream
+    (True, ["-b", "{bed}"], 1.0),   # the ranged stream: ranged splits
     (False, ["-b", "{bed}"], 0.0),  # the region cursor
 ])
 def test_feed_split_by_stream(bams, tmp_path, capsys, index, extra,
