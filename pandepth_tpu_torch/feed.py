@@ -1,6 +1,6 @@
 """The readers' half of a run, copied from ``pandepth_tpu/run.py`` (its
 jax-free helpers, under public names): input sniffing, the native
-loaders and their feed (with the puller of encoded windows that lets a
+BAM stream and its feed (with the puller of encoded windows that lets a
 run stash them on a thread before its engine exists, while torch starts:
 ``pandepth_tpu_torch.run.prepare``), the header read, the region filters of the
 Python decoders' batches and CRAM's intervals, and the PAF contig table
@@ -36,10 +36,11 @@ def is_paf(path: str) -> bool:
     return _ext(_strip_gz(path)).lower() == "paf"
 
 
-def open_alignment(path: str, threads: int = 0):
-    """Sniff BAM (BGZF) vs SAM text vs CRAM and return a reader with a
-    ``.header`` and ``.batches()``. BAM prefers the native C++ decoder
-    (libpancov_io) and falls back to the pure Python one."""
+def open_alignment(path: str):
+    """Sniff BAM (BGZF) vs SAM text vs CRAM and return a Python reader
+    with a ``.header`` and ``.batches()``. Where the native library is
+    wanted a BAM takes the stream instead (:func:`try_native_load`), so
+    this reads a BAM only under ``PANDEPTH_NO_NATIVE=1``."""
     with open(path, "rb") as fh:
         magic = fh.read(4)
     if magic[:4] == b"CRAM":
@@ -47,13 +48,6 @@ def open_alignment(path: str, threads: int = 0):
         return CramReader(path)
     if magic[:2] == b"\x1f\x8b":
         # could be BAM-in-BGZF or gzipped SAM; readers sniff content
-        try:
-            from pandepth_tpu_torch.io.native import (NativeBamReader,
-                                                      load_library)
-            if load_library() is not None:
-                return NativeBamReader(path, threads=threads)
-        except (ValueError, RuntimeError, OSError):
-            pass
         try:
             return BamReader(path)
         except ValueError as e:
@@ -72,32 +66,34 @@ def index_present(path: str) -> bool:
 
 def try_native_load(path: str, config: RunConfig,
                     ext_offsets=None, ext_limits=None, regions=None):
-    """Native load when the file is BAM and the library builds.
-
-    Targeted runs with an index use the ranged stream (only
-    target-overlapping BGZF blocks are inflated). Everything else uses
-    the bounded-memory streaming loader: windows of the file are
-    inflated and walked behind a producer thread while the engine
-    uploads the previous window's events; with no region filter and an
-    index, the producer walks the splits between the index's record
-    starts on every thread (``PANDEPTH_STREAM=0`` forces the round-1
-    whole-file loader)."""
+    """The bounded-memory native stream of the BAM ``path``, or None when
+    the file is not BGZF, the library does not build or the stream cannot
+    open it: windows of the file are inflated and walked behind a
+    producer thread while the engine uploads the previous window's
+    events. With an index, the producer walks on every thread: a
+    targeted run (region mode 1) reads only the index's merged chunk
+    ranges, cut at the chunks' starts, and a run with no region filter
+    the splits between the index's record starts. Every other stream
+    (region mode 2, no index) is walked serially."""
     with open(path, "rb") as fh:
         magic = fh.read(4)
     if magic[:2] != b"\x1f\x8b":
         return None
     try:
-        from pandepth_tpu_torch.io.native import (NativeBamLoad,
-                                                  NativeBamStream,
+        from pandepth_tpu_torch.io.native import (NativeBamStream,
                                                   load_library)
         if load_library() is None:
             return None
-        use_stream = os.environ.get("PANDEPTH_STREAM", "1") != "0"
-        vranges = None
-        if regions is not None and regions[3] == 1:
-            from pandepth_tpu_torch.io.bamindex import (load_index_for,
-                                                        merge_ranges,
-                                                        window_chunks)
+        from pandepth_tpu_torch.io.bamindex import (load_index_for,
+                                                    merge_ranges,
+                                                    record_starts,
+                                                    window_chunks)
+        vranges = cuts = None
+        if regions is None:
+            idx = load_index_for(path)
+            if idx is not None:
+                cuts = record_starts(idx)
+        elif regions[3] == 1:
             with span("feed.index"):
                 idx = load_index_for(path)
                 if idx is not None:
@@ -105,53 +101,12 @@ def try_native_load(path: str, config: RunConfig,
                     # BGZF blocks whose records can overlap the windows
                     chunks = window_chunks(idx, regions)
                     vranges = merge_ranges(chunks)
-            if vranges is not None and use_stream:
-                # ranged streaming: block skipping with bounded memory,
-                # runs of the merged chunk ranges walked on every thread;
-                # the chunks' starts cut a long range
-                return NativeBamStream(path, config.flags,
-                                       config.min_mapq,
-                                       threads=config.threads,
-                                       ext_offsets=ext_offsets,
-                                       ext_limits=ext_limits,
-                                       regions=regions,
-                                       vranges=vranges,
-                                       cuts=np.unique(chunks[:, 0]))
-        elif regions is None and not use_stream:
-            from pandepth_tpu_torch.io.bamindex import (full_file_splits,
-                                                        load_index_for)
-            idx = load_index_for(path)
-            if idx is not None:
-                # no target restriction: split the stream at known
-                # record boundaries for a parallel full-file walk
-                vranges = full_file_splits(
-                    idx, max(config.threads, os.cpu_count() or 1))
-                if vranges.shape[0] <= 1:
-                    vranges = None
-        if vranges is not None:
-            return NativeBamLoad(path, config.flags, config.min_mapq,
-                                 threads=config.threads,
-                                 ext_offsets=ext_offsets,
-                                 ext_limits=ext_limits,
-                                 regions=regions, vranges=vranges)
-        if use_stream:
-            cuts = None
-            if regions is None:
-                from pandepth_tpu_torch.io.bamindex import (load_index_for,
-                                                            record_starts)
-                idx = load_index_for(path)
-                if idx is not None:
-                    cuts = record_starts(idx)
-            return NativeBamStream(path, config.flags,
-                                   config.min_mapq,
-                                   threads=config.threads,
-                                   ext_offsets=ext_offsets,
-                                   ext_limits=ext_limits,
-                                   regions=regions, cuts=cuts)
-        return NativeBamLoad(path, config.flags, config.min_mapq,
-                             threads=config.threads,
-                             ext_offsets=ext_offsets,
-                             ext_limits=ext_limits, regions=regions)
+                    cuts = np.unique(chunks[:, 0])
+        return NativeBamStream(path, config.flags, config.min_mapq,
+                               threads=config.threads,
+                               ext_offsets=ext_offsets,
+                               ext_limits=ext_limits, regions=regions,
+                               vranges=vranges, cuts=cuts)
     except (ValueError, RuntimeError, OSError):
         return None
 

@@ -9,8 +9,10 @@ src/PanDepth.cpp:3491).
 
 Record boundary discovery is sequential by nature (each record carries
 its own block_size); fixed fields and the CIGAR stream are then gathered
-with vectorized numpy. The C++ decoder in ``pandepth_tpu/io/native``
-replaces this path for throughput; both produce identical batches.
+with vectorized numpy. This decoder runs under ``PANDEPTH_NO_NATIVE=1``;
+otherwise the native stream (``pandepth_tpu_torch/io/native``) decodes
+a BAM straight to coverage events, and only :func:`read_bam_header`
+runs here.
 """
 
 from __future__ import annotations
@@ -244,28 +246,33 @@ def decode_records(data: bytes, offsets: np.ndarray) -> ReadBatch:
 
 
 def read_bam_header(path: str) -> BamHeader:
-    """Parse just the BAM header, inflating only the leading BGZF
-    blocks (cheap: a few blocks even for huge headers)."""
-    from pandepth_tpu_torch.io import bgzf
+    """Parse just the BAM header, inflating the leading BGZF blocks one
+    at a time until it is whole: a few blocks for most files, as many as
+    a header of hundreds of thousands of contigs takes. A file whose
+    first inflated bytes are not ``BAM\\1`` (gzipped SAM text) stops
+    there, so it is never inflated whole."""
+    from pandepth_tpu_torch.io.bgzf import read_block
 
+    data = bytearray()
+    # where the parse goes on: the end of n_ref, then of each contig's
+    # entry in turn; refs counts the entries left (-1: n_ref not read)
+    end, refs = 8, -1
     with open(path, "rb") as fh:
-        raw = fh.read(1 << 22)  # enough blocks for any sane header
-    parts = []
-    got = 0
-    for off, bsize, payload in bgzf.iter_block_ranges(raw):
-        if off + bsize > len(raw):
-            break
-        parts.append(bgzf.decompress_block(raw, off, payload, bsize))
-        got += len(parts[-1])
-        data = b"".join(parts)
-        if len(data) >= 12:
-            try:
-                header, _ = _parse_header(data)
-                return header
-            except (ValueError, IndexError, struct.error):
-                continue  # need more blocks
-    header, _ = _parse_header(b"".join(parts))
-    return header
+        while refs != 0 or end > len(data):
+            data += read_block(fh)
+            if len(data) >= 4 and data[:4] != b"BAM\x01":
+                raise ValueError("not a BAM stream (bad magic)")
+            if refs < 0 and len(data) >= 8:
+                end = 12 + struct.unpack_from("<i", data, 4)[0]
+                if end <= len(data):
+                    refs = struct.unpack_from("<i", data, end - 4)[0]
+            while refs > 0 and end + 4 <= len(data):
+                l_name = struct.unpack_from("<i", data, end)[0]
+                if l_name < 1:
+                    raise ValueError("malformed BAM header (l_name < 1)")
+                end += 8 + l_name
+                refs -= 1
+    return _parse_header(bytes(data))[0]
 
 
 class BamReader:

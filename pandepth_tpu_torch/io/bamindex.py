@@ -260,22 +260,6 @@ def record_starts(index: BamIndex) -> np.ndarray:
     return np.unique(np.concatenate(v0s))
 
 
-def full_file_splits(index: BamIndex, n_parts: int) -> np.ndarray:
-    """Partition the whole record stream into ~n_parts virtual-offset
-    ranges at chunk starts (guaranteed record boundaries), enabling a
-    parallel full-file walk. The final range is open-ended so trailing
-    records (e.g. unplaced reads) are still visited."""
-    starts = record_starts(index)
-    if starts.size == 0:
-        return np.zeros((0, 2), np.int64)
-    picks = starts[np.linspace(0, starts.size - 1,
-                               min(n_parts, starts.size),
-                               dtype=np.int64)]
-    picks = np.unique(picks)
-    ends = np.concatenate([picks[1:], [np.iinfo(np.int64).max]])
-    return np.stack([picks, ends], axis=1)
-
-
 def window_chunks(index: BamIndex, windows) -> np.ndarray:
     """The (n, 2) virtual-offset chunks of every bin that can hold a read
     overlapping a fetch window ((per_tid_off, starts0, ends0) as produced

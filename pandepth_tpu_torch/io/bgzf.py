@@ -72,6 +72,22 @@ def decompress_block(data: bytes, block_off: int, payload_off: int,
     return out
 
 
+def read_block(fh: BinaryIO) -> bytes:
+    """The next BGZF block of the open file ``fh``, inflated; BgzfError
+    at the end of the file or on a truncated or malformed block."""
+    head = fh.read(12)
+    if len(head) < 12:
+        raise BgzfError("truncated BGZF block header")
+    head += fh.read(struct.unpack_from("<H", head, 10)[0])
+    payload_off, bsize = _parse_block_header(head, 0)
+    if bsize < len(head) + 8:
+        raise BgzfError("BGZF block smaller than its header")
+    block = head + fh.read(bsize - len(head))
+    if len(block) < bsize:
+        raise BgzfError("truncated BGZF block")
+    return decompress_block(block, 0, payload_off, bsize)
+
+
 def decompress_all(data: bytes) -> bytes:
     """Inflate an entire in-memory BGZF byte string."""
     parts: List[bytes] = []

@@ -13,10 +13,13 @@ so the JAX package's library in the same directory is never overwritten
 It is rebuilt when ``pancov_io.cpp`` is newer than it; deleting the file
 forces a rebuild. ``host_finalize`` binds the native host sweep
 (``pancov_host_finalize``) that the host engine runs
-(``device/host_engine.py``). The stream's opt-in parallel
-record walk (the JAX package's ``PANDEPTH_PAR_WALK=1``) is left out of
-this copy of ``pancov_io.cpp``: it measured slower than the serial walk,
-and it trusted each record's length to fit the offsets it reserved.
+(``device/host_engine.py``). The one BAM decoder here is
+:class:`NativeBamStream`, in bounded memory whatever the file's size
+(the JAX package's whole-file reader and loader are not copied). The
+stream's opt-in parallel record walk (the JAX package's
+``PANDEPTH_PAR_WALK=1``) is left out of this copy of ``pancov_io.cpp``:
+it measured slower than the serial walk, and it trusted each record's
+length to fit the offsets it reserved.
 Instead, a whole-file stream given the index's record starts
 (``NativeBamStream(cuts=...)``) walks the splits between them on every
 thread, each split read, inflated and walked by one thread, and checks
@@ -31,7 +34,7 @@ import ctypes
 import os
 import subprocess
 import threading
-from typing import Iterator, Optional
+from typing import Optional
 
 import numpy as np
 
@@ -93,58 +96,8 @@ def load_library() -> Optional[ctypes.CDLL]:
             if _build_error is not None:
                 return None
         lib = ctypes.CDLL(_LIB)
-        lib.pancov_bam_open.restype = ctypes.c_void_p
-        lib.pancov_bam_open.argtypes = [ctypes.c_char_p, ctypes.c_int,
-                                        ctypes.c_char_p, ctypes.c_int]
-        for name, res, args in [
-            ("pancov_bam_n_targets", ctypes.c_int64, [ctypes.c_void_p]),
-            ("pancov_bam_name_len", ctypes.c_int64,
-             [ctypes.c_void_p, ctypes.c_int64]),
-            ("pancov_bam_name", None,
-             [ctypes.c_void_p, ctypes.c_int64, ctypes.c_char_p]),
-            ("pancov_bam_target_len", ctypes.c_int64,
-             [ctypes.c_void_p, ctypes.c_int64]),
-            ("pancov_bam_text_len", ctypes.c_int64, [ctypes.c_void_p]),
-            ("pancov_bam_text", None, [ctypes.c_void_p, ctypes.c_char_p]),
-            ("pancov_bam_n_records", ctypes.c_int64, [ctypes.c_void_p]),
-            ("pancov_bam_total_ops", ctypes.c_int64, [ctypes.c_void_p]),
-            ("pancov_bam_count_ops", ctypes.c_int64,
-             [ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64]),
-            ("pancov_bam_close", None, [ctypes.c_void_p]),
-        ]:
-            fn = getattr(lib, name)
-            fn.restype = res
-            fn.argtypes = args
         i32p = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
         i64p = np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS")
-        lib.pancov_bam_decode.restype = ctypes.c_int64
-        lib.pancov_bam_decode.argtypes = [
-            ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
-            i32p, i32p, i32p, i32p, i32p, i32p, i32p, i32p]
-        lib.pancov_bam_events.restype = ctypes.c_int64
-        lib.pancov_bam_events.argtypes = [
-            ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
-            ctypes.c_uint32, ctypes.c_int32, i64p, i64p,
-            ctypes.c_int64, ctypes.c_int, i64p, i64p]
-        lib.pancov_bam_load.restype = ctypes.c_void_p
-        lib.pancov_bam_load.argtypes = [
-            ctypes.c_char_p, ctypes.c_int, ctypes.c_uint32,
-            ctypes.c_int32, ctypes.c_int64, ctypes.c_void_p,
-            ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
-            ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_int64, ctypes.c_char_p, ctypes.c_int]
-        lib.pancov_load_n_events.restype = ctypes.c_int64
-        lib.pancov_load_n_events.argtypes = [ctypes.c_void_p]
-        lib.pancov_load_events.restype = None
-        lib.pancov_load_events.argtypes = [ctypes.c_void_p, i64p, i64p]
-        lib.pancov_load_events32.restype = None
-        lib.pancov_load_events32.argtypes = [
-            ctypes.c_void_p, i32p, i32p, ctypes.c_int64, ctypes.c_int32]
-        lib.pancov_load_bam.restype = ctypes.c_void_p
-        lib.pancov_load_bam.argtypes = [ctypes.c_void_p]
-        lib.pancov_load_close.restype = None
-        lib.pancov_load_close.argtypes = [ctypes.c_void_p]
         lib.pancov_stream_open.restype = ctypes.c_void_p
         lib.pancov_stream_open.argtypes = [
             ctypes.c_char_p, ctypes.c_int, ctypes.c_uint32,
@@ -156,8 +109,6 @@ def load_library() -> Optional[ctypes.CDLL]:
             ctypes.c_int64, ctypes.c_char_p, ctypes.c_int]
         for name, res, args in [
             ("pancov_stream_wait", ctypes.c_int64, [ctypes.c_void_p]),
-            ("pancov_stream_win_records", ctypes.c_int64,
-             [ctypes.c_void_p]),
             ("pancov_stream_n_records", ctypes.c_int64,
              [ctypes.c_void_p]),
             ("pancov_stream_split_records", ctypes.c_int64,
@@ -185,8 +136,6 @@ def load_library() -> Optional[ctypes.CDLL]:
             ("pancov_stream_text", None,
              [ctypes.c_void_p, ctypes.c_char_p]),
             ("pancov_stream_close", None, [ctypes.c_void_p]),
-            ("pancov_stream_win_remaining", ctypes.c_int64,
-             [ctypes.c_void_p]),
             ("pancov_stream_wait_ns", ctypes.c_int64, [ctypes.c_void_p]),
         ]:
             fn = getattr(lib, name)
@@ -201,8 +150,7 @@ def load_library() -> Optional[ctypes.CDLL]:
                                              i64p]
         u8p = np.ctypeslib.ndpointer(np.uint8, flags="C")
         u16p = np.ctypeslib.ndpointer(np.uint16, flags="C")
-        for enc_name, dp in (("pancov_stream_take_enc", u8p),
-                             ("pancov_stream_take_enc_acc", u8p),
+        for enc_name, dp in (("pancov_stream_take_enc_acc", u8p),
                              ("pancov_stream_take_enc_acc16", u16p)):
             fn = getattr(lib, enc_name)
             fn.restype = ctypes.c_int64
@@ -528,124 +476,6 @@ class NativeTargetsLoad:
             pass
 
 
-class NativeBamLoad:
-    """One-shot pipelined load: BGZF inflate runs on worker threads
-    while a chaser thread indexes records and extracts filtered,
-    clamped coverage events in the same pass. The whole host side runs
-    at inflate speed."""
-
-    def __init__(self, path: str, flags_mask: int, min_mapq: int,
-                 pad: int = 512, threads: int = 0,
-                 ext_offsets: Optional[np.ndarray] = None,
-                 ext_limits: Optional[np.ndarray] = None,
-                 regions=None, vranges: Optional[np.ndarray] = None):
-        """``regions``: optional (per_tid_offsets, starts, ends, mode)
-        int64 arrays of disjoint sorted regions + semantics selector:
-        mode 1 = indexed overlap windows (0-based half-open, padded),
-        mode 2 = no-index sorted-stream cursor (1-based closed spans,
-        reference quirks included)."""
-        from pandepth_tpu_torch.io.bam import BamHeader
-
-        lib = load_library()
-        if lib is None:
-            raise RuntimeError(
-                f"libpancov_io unavailable: {build_error()}")
-        self._lib = lib
-        if threads <= 0:
-            threads = min(os.cpu_count() or 1, 16)
-        err = ctypes.create_string_buffer(256)
-        keep = []
-        if ext_offsets is not None:
-            eo = np.ascontiguousarray(ext_offsets, np.int64)
-            el = np.ascontiguousarray(ext_limits, np.int64)
-            keep += [eo, el]
-            op, lp, ne = eo.ctypes.data, el.ctypes.data, eo.shape[0]
-        else:
-            op = lp = None
-            ne = 0
-        if regions is not None:
-            ro = np.ascontiguousarray(regions[0], np.int64)
-            rs = np.ascontiguousarray(regions[1], np.int64)
-            re_ = np.ascontiguousarray(regions[2], np.int64)
-            rmode = int(regions[3])
-            keep += [ro, rs, re_]
-            rop, rsp, rep, nr = (ro.ctypes.data, rs.ctypes.data,
-                                 re_.ctypes.data, rs.shape[0])
-        else:
-            rop = rsp = rep = None
-            nr = 0
-            rmode = 0
-        if vranges is not None and vranges.shape[0] > 0:
-            vs = np.ascontiguousarray(vranges[:, 0], np.int64)
-            ve = np.ascontiguousarray(vranges[:, 1], np.int64)
-            keep += [vs, ve]
-            vsp, vep, nv = vs.ctypes.data, ve.ctypes.data, vs.shape[0]
-        else:
-            vsp = vep = None
-            nv = 0
-        self._keep = keep  # keep buffers alive during the call
-        self._h = lib.pancov_bam_load(path.encode(), threads,
-                                      flags_mask, min_mapq, pad, op, lp,
-                                      ne, rop, rsp, rep, nr, rmode, vsp,
-                                      vep, nv, err, len(err))
-        if not self._h:
-            raise ValueError(
-                f"pancov_bam_load({path}): {err.value.decode()}")
-        bam_h = lib.pancov_load_bam(self._h)
-        n = lib.pancov_bam_n_targets(bam_h)
-        names = []
-        lengths = np.zeros(n, np.int64)
-        for i in range(n):
-            ln = lib.pancov_bam_name_len(bam_h, i)
-            buf = ctypes.create_string_buffer(max(ln, 1))
-            lib.pancov_bam_name(bam_h, i, buf)
-            names.append(buf.raw[:ln].decode())
-            lengths[i] = lib.pancov_bam_target_len(bam_h, i)
-        tl = lib.pancov_bam_text_len(bam_h)
-        tbuf = ctypes.create_string_buffer(max(tl, 1))
-        if tl:
-            lib.pancov_bam_text(bam_h, tbuf)
-        self.header = BamHeader(text=tbuf.raw[:tl].decode("utf-8",
-                                                          "replace"),
-                                names=names, lengths=lengths)
-        self.n_records = int(lib.pancov_bam_n_records(bam_h))
-
-    @property
-    def n_events(self) -> int:
-        return int(self._lib.pancov_load_n_events(self._h))
-
-    def events(self):
-        """(starts, ends) int64 arrays of all extracted events."""
-        m = int(self._lib.pancov_load_n_events(self._h))
-        starts = np.empty(max(m, 1), np.int64)
-        ends = np.empty(max(m, 1), np.int64)
-        if m:
-            self._lib.pancov_load_events(self._h, starts, ends)
-        return starts[:m], ends[:m]
-
-    def events32_padded(self, cap: int, sentinel: int):
-        """(starts, ends, m): int32 arrays of ``cap`` elements, tail
-        filled with ``sentinel`` — ready for direct device upload."""
-        m = int(self._lib.pancov_load_n_events(self._h))
-        cap = max(cap, m, 1)
-        starts = np.empty(cap, np.int32)
-        ends = np.empty(cap, np.int32)
-        self._lib.pancov_load_events32(self._h, starts, ends, cap,
-                                       sentinel)
-        return starts, ends, m
-
-    def close(self) -> None:
-        if self._h:
-            self._lib.pancov_load_close(self._h)
-            self._h = None
-
-    def __del__(self):
-        try:
-            self.close()
-        except Exception:
-            pass
-
-
 class NativeBamStream:
     """Bounded-memory streaming load: the producer thread reads,
     inflates (parallel) and walks one compressed window at a time;
@@ -761,9 +591,6 @@ class NativeBamStream:
                 f"pancov stream: {err.value.decode() or 'error'}")
         return n
 
-    def win_records(self) -> int:
-        return int(self._lib.pancov_stream_win_records(self._h))
-
     def take32(self, cap: int, sentinel: int):
         s = np.empty(cap, np.int32)
         e = np.empty(cap, np.int32)
@@ -777,34 +604,6 @@ class NativeBamStream:
         e = np.empty(max(n, 1), np.int64)
         self._lib.pancov_stream_take64(self._h, s, e)
         return s[:n], e[:n]
-
-    def take_enc(self, cap: int, exc_cap: int):
-        """Compact-encode up to ``cap`` (start, end) pairs of the
-        current window (~2 B/pair over the device link vs 8). Returns
-        (n, d8, l8, excd, excl, base) with fixed-shape zero-tailed
-        buffers, or None when the window is exhausted (released; call
-        wait() for the next). Positions are full int64."""
-        d8 = np.empty(cap, np.uint8)
-        l8 = np.empty(cap, np.uint8)
-        excd = np.empty(exc_cap, np.int64)
-        excl = np.empty(exc_cap, np.int64)
-        base = ctypes.c_int64(0)
-        nd = ctypes.c_int64(0)
-        nl = ctypes.c_int64(0)
-        n = int(self._lib.pancov_stream_take_enc(
-            self._h, d8, l8, excd, excl, cap, exc_cap,
-            ctypes.byref(base), ctypes.byref(nd), ctypes.byref(nl)))
-        if n == 0:
-            return None
-        if n < 0:
-            # escape-list overflow before any pair encoded: the caller
-            # drains the remainder with take32 (win_remaining gives m)
-            return "stall"
-        return n, d8, l8, excd, excl, int(base.value)
-
-    def win_remaining(self) -> int:
-        """Pairs left in the current window (after partial take_enc)."""
-        return int(self._lib.pancov_stream_win_remaining(self._h))
 
     def _take_acc(self, fn, dtype, cap: int, exc_cap: int):
         dd = np.empty(cap, dtype)
@@ -830,11 +629,13 @@ class NativeBamStream:
         return n, dd, ll, excd, excl, int(base.value)
 
     def take_enc_acc(self, cap: int, exc_cap: int):
-        """Like take_enc but fills the whole cap-size buffer ACROSS
-        windows (blocking on the producer), so device buffers stay
-        full and sort padding stays O(1/K). Returns the same tuple,
-        or None at clean EOF; escape-heavy inputs yield partial
-        buffers (never a stall)."""
+        """Compact-encode (start, end) pairs (~2 B/pair over the device
+        link vs 8), filling the whole cap-size buffer ACROSS windows
+        (blocking on the producer), so device buffers stay full and sort
+        padding stays O(1/K). Returns (n, d8, l8, excd, excl, base) with
+        fixed-shape zero-tailed buffers, or None at clean EOF;
+        escape-heavy inputs yield partial buffers. Positions are full
+        int64."""
         return self._take_acc(self._lib.pancov_stream_take_enc_acc,
                               np.uint8, cap, exc_cap)
 
@@ -907,102 +708,3 @@ class NativeBamStream:
         except Exception:
             pass
 
-
-class NativeBamReader:
-    """Drop-in replacement for io.bam.BamReader backed by libpancov_io."""
-
-    def __init__(self, path: str, threads: int = 0):
-        from pandepth_tpu_torch.io.bam import BamHeader
-
-        lib = load_library()
-        if lib is None:
-            raise RuntimeError(
-                f"libpancov_io unavailable: {build_error()}")
-        self._lib = lib
-        if threads <= 0:
-            threads = min(os.cpu_count() or 1, 16)
-        err = ctypes.create_string_buffer(256)
-        self._h = lib.pancov_bam_open(path.encode(), threads, err,
-                                      len(err))
-        if not self._h:
-            raise ValueError(
-                f"pancov_bam_open({path}): {err.value.decode()}")
-        n = lib.pancov_bam_n_targets(self._h)
-        names = []
-        lengths = np.zeros(n, np.int64)
-        for i in range(n):
-            ln = lib.pancov_bam_name_len(self._h, i)
-            buf = ctypes.create_string_buffer(ln)
-            lib.pancov_bam_name(self._h, i, buf)
-            names.append(buf.raw[:ln].decode())
-            lengths[i] = lib.pancov_bam_target_len(self._h, i)
-        tl = lib.pancov_bam_text_len(self._h)
-        tbuf = ctypes.create_string_buffer(max(tl, 1))
-        if tl:
-            lib.pancov_bam_text(self._h, tbuf)
-        self.header = BamHeader(text=tbuf.raw[:tl].decode("utf-8",
-                                                          "replace"),
-                                names=names, lengths=lengths)
-        self.n_records = int(lib.pancov_bam_n_records(self._h))
-
-    def batches(self, max_reads: int = 1 << 18) -> Iterator:
-        from pandepth_tpu_torch.io.bam import ReadBatch
-
-        lib, h = self._lib, self._h
-        r0 = 0
-        while r0 < self.n_records:
-            r1 = min(r0 + max_reads, self.n_records)
-            n = r1 - r0
-            m = int(lib.pancov_bam_count_ops(h, r0, r1))
-            tid = np.empty(n, np.int32)
-            pos = np.empty(n, np.int32)
-            flag = np.empty(n, np.int32)
-            mapq = np.empty(n, np.int32)
-            n_ops = np.empty(n, np.int32)
-            opc = np.empty(max(m, 1), np.int32)
-            opl = np.empty(max(m, 1), np.int32)
-            opr = np.empty(max(m, 1), np.int32)
-            wrote = lib.pancov_bam_decode(h, r0, r1, tid, pos, flag,
-                                          mapq, n_ops, opc, opl, opr)
-            assert wrote == m, (wrote, m)
-            yield ReadBatch(tid=tid, pos=pos, flag=flag, mapq=mapq,
-                            n_ops=n_ops, op_code=opc[:m], op_len=opl[:m],
-                            op_read=opr[:m])
-            r0 = r1
-
-    def event_batches(self, offsets: np.ndarray, limits: np.ndarray,
-                      flags_mask: int, min_mapq: int,
-                      max_reads: int = 1 << 20,
-                      threads: int = 0) -> Iterator:
-        """Yield (starts, ends) int64 global coverage-event arrays —
-        the FLAG/MAPQ-filtered, clamped M/=/X segments of each batch,
-        extracted by the threaded C++ path (event order is irrelevant,
-        the device sweep sorts)."""
-        lib, h = self._lib, self._h
-        if threads <= 0:
-            threads = min(os.cpu_count() or 1, 16)
-        offsets = np.ascontiguousarray(offsets, np.int64)
-        limits = np.ascontiguousarray(limits, np.int64)
-        n_targets = offsets.shape[0]
-        r0 = 0
-        while r0 < self.n_records:
-            r1 = min(r0 + max_reads, self.n_records)
-            cap = max(int(lib.pancov_bam_count_ops(h, r0, r1)), 1)
-            starts = np.empty(cap, np.int64)
-            ends = np.empty(cap, np.int64)
-            m = lib.pancov_bam_events(h, r0, r1, flags_mask,
-                                      min_mapq, offsets, limits,
-                                      n_targets, threads, starts, ends)
-            yield starts[:m], ends[:m]
-            r0 = r1
-
-    def close(self) -> None:
-        if self._h:
-            self._lib.pancov_bam_close(self._h)
-            self._h = None
-
-    def __del__(self):
-        try:
-            self.close()
-        except Exception:
-            pass

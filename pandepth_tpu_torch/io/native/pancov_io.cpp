@@ -3,20 +3,21 @@
 // TPU-era replacement for the role htslib plays in the reference
 // (BGZF block inflate + BAM record decode + decode thread pool,
 // consumed at src/PanDepth.cpp:3482-3507 and the ProDealChrBambai*
-// workers). The TPU is useless if the host feed starves (SURVEY.md §8
-// hard part #1), so this library:
+// workers). The device is useless if the host feed starves (SURVEY.md
+// §8 hard part #1), so the BAM stream (pancov_stream_*):
 //
 //   * scans BGZF block boundaries via the BSIZE extra field (SAMv1
 //     §4.1) without inflating,
-//   * inflates all blocks in parallel with a std::thread pool (zlib
-//     raw deflate per block; ISIZE trailer gives each block's output
-//     offset up front, so threads write disjoint slices of one
-//     buffer),
-//   * walks BAM records once to index boundaries, then fills
-//     caller-provided columnar arrays (tid/pos/flag/mapq + flattened
-//     CIGAR stream) — exactly the ReadBatch layout the device engine
-//     consumes (pandepth_tpu/io/bam.py).
+//   * inflates blocks in parallel (zlib or libdeflate raw deflate per
+//     block; the ISIZE trailer gives each block's output offset up
+//     front, so threads write disjoint slices of one buffer),
+//   * walks the records once, filtering them and extracting each kept
+//     M/=/X segment as a clamped global [start, end) coverage event,
+//     in bounded-memory windows behind a producer thread, on every
+//     thread where the index cuts the file into splits.
 //
+// The same file parses PAF, SAM text and target files to events or rows,
+// writes the stat tables' gzip members, and runs the host sweep.
 // Exposed as a plain C ABI for ctypes; no Python headers needed.
 
 #include <sys/mman.h>
@@ -88,36 +89,6 @@ struct Block {
   size_t out_off;    // offset in decompressed buffer
   uint32_t out_len;  // ISIZE
 };
-
-// uninitialized byte buffer: std::vector<uint8_t>::resize zero-fills,
-// which costs ~0.5 ms/MB before inflate overwrites every byte anyway.
-// (MADV_HUGEPAGE was tried and reverted: on the dev VM it triggers
-// synchronous compaction and multiplies kernel time ~5x.)
-struct RawBuf {
-  uint8_t* p = nullptr;
-  size_t n = 0;
-  ~RawBuf() { delete[] p; }
-  void alloc(size_t size) {
-    delete[] p;
-    p = new uint8_t[size];
-    n = size;
-  }
-  uint8_t* data() { return p; }
-  const uint8_t* data() const { return p; }
-  size_t size() const { return n; }
-};
-
-struct BamFile {
-  RawBuf data;  // decompressed stream
-  std::string error;
-  std::string text;                    // SAM header text
-  std::vector<std::string> names;
-  std::vector<int64_t> lengths;
-  std::vector<size_t> rec_off;         // per record: first field offset
-  std::vector<int32_t> rec_ncigar;
-  int64_t total_ops = 0;
-};
-
 bool read_file(const char* path, std::vector<uint8_t>& out) {
   FILE* f = std::fopen(path, "rb");
   if (!f) return false;
@@ -167,32 +138,6 @@ long bgzf_block_size(const uint8_t* p, size_t xend) {
   return bsize < 0 || (size_t)bsize < xend + 8 ? -1 : bsize;
 }
 
-// Scan BGZF member headers; returns false on malformed framing.
-bool scan_blocks(const std::vector<uint8_t>& raw, std::vector<Block>& blocks,
-                 size_t& total_out) {
-  size_t off = 0, n = raw.size();
-  total_out = 0;
-  while (off + 18 <= n) {
-    const uint8_t* p = raw.data() + off;
-    if (p[0] != 0x1f || p[1] != 0x8b) return false;
-    if (!(p[3] & 4)) return false;  // FEXTRA required for BGZF
-    uint16_t xlen = le16(p + 10);
-    size_t xend = off + 12 + xlen;
-    if (xend > n) return false;
-    // a block holds at least its own header + CRC32/ISIZE trailer
-    // (bgzf_block_size), or payload_len below would underflow size_t
-    long bsize = bgzf_block_size(p, 12 + xlen);
-    if (bsize < 0 || off + (size_t)bsize > n) return false;
-    size_t payload = xend;
-    size_t payload_len = off + bsize - 8 - payload;
-    uint32_t isize = le32(raw.data() + off + bsize - 4);
-    blocks.push_back({off, payload, payload_len, total_out, isize});
-    total_out += isize;
-    off += (size_t)bsize;
-  }
-  return off == n;
-}
-
 #ifdef USE_LIBDEFLATE
 // libdeflate decompresses BGZF blocks ~2-3x faster than zlib — the
 // host-side throughput lever called out in SURVEY.md §2.2. One
@@ -222,63 +167,6 @@ bool inflate_block(const uint8_t* src, size_t src_len, uint8_t* dst,
   return rc == Z_STREAM_END && zs.avail_out == 0;
 }
 #endif
-
-bool inflate_all(const std::vector<uint8_t>& raw, int n_threads,
-                 RawBuf& out) {
-  std::vector<Block> blocks;
-  size_t total = 0;
-  if (!scan_blocks(raw, blocks, total)) return false;
-  out.alloc(total);
-  std::atomic<size_t> next(0);
-  std::atomic<bool> ok(true);
-  if (n_threads < 1) n_threads = 1;
-  auto worker = [&]() {
-    for (;;) {
-      size_t i = next.fetch_add(1);
-      if (i >= blocks.size() || !ok.load()) break;
-      const Block& b = blocks[i];
-      if (b.out_len &&
-          !inflate_block(raw.data() + b.in_off, b.in_len,
-                         out.data() + b.out_off, b.out_len))
-        ok.store(false);
-    }
-  };
-  std::vector<std::thread> ts;
-  for (int t = 1; t < n_threads; t++) ts.emplace_back(worker);
-  worker();
-  for (auto& t : ts) t.join();
-  return ok.load();
-}
-
-bool parse_header(BamFile* bf, size_t& off) {
-  const auto& d = bf->data;
-  if (d.size() < 12 || std::memcmp(d.data(), "BAM\x01", 4) != 0) {
-    bf->error = "not a BAM stream";
-    return false;
-  }
-  uint32_t l_text = le32(d.data() + 4);
-  off = 8;
-  if (off + l_text + 4 > d.size()) return false;
-  const char* tp = (const char*)d.data() + off;
-  bf->text.assign(tp, strnlen(tp, l_text));
-  off += l_text;
-  uint32_t n_ref = le32(d.data() + off);
-  off += 4;
-  bf->names.reserve(n_ref);
-  bf->lengths.reserve(n_ref);
-  for (uint32_t i = 0; i < n_ref; i++) {
-    if (off + 4 > d.size()) return false;
-    uint32_t l_name = le32(d.data() + off);
-    off += 4;
-    // l_name counts the NUL terminator; 0 would wrap l_name - 1
-    if (l_name < 1 || off + l_name + 4 > d.size()) return false;
-    bf->names.emplace_back((const char*)d.data() + off, l_name - 1);
-    off += l_name;
-    bf->lengths.push_back((int32_t)le32(d.data() + off));
-    off += 4;
-  }
-  return true;
-}
 
 // Long-CIGAR records: BAM caps n_cigar at 2^16-1, so writers store a
 // `l_qseq S, ref_span N` placeholder in the CIGAR field and the real
@@ -349,260 +237,37 @@ inline void effective_cigar(const uint8_t* p, uint32_t block_size,
   if (nc > 0) cg_real_cigar(p, block_size, nc, cig, n);
 }
 
-bool index_records(BamFile* bf, size_t off) {
-  const auto& d = bf->data;
-  size_t n = d.size();
-  size_t guess = (n - off) / 100 + 16;  // typical short-read record
-  bf->rec_off.reserve(guess);
-  bf->rec_ncigar.reserve(guess);
-  while (off + 4 <= n) {
-    uint32_t block_size = le32(d.data() + off);
-    if (off + 4 + block_size > n || block_size < 32) {
-      bf->error = "truncated BAM record";
-      return false;
-    }
-    size_t r = off + 4;
-    uint16_t n_cigar = le16(d.data() + r + 12);
-    // the fixed fields + read name + CIGAR must fit inside the record,
-    // or decode walks out of bounds on a corrupt/hostile file
-    if (32u + d.data()[r + 8] + 4u * n_cigar > block_size) {
-      bf->error = "truncated BAM record";
-      return false;
-    }
-    bf->rec_off.push_back(r);
-    const uint8_t* cg;
-    int64_t nc_eff = n_cigar;
-    if (n_cigar > 0)
-      cg_real_cigar(d.data() + r, block_size, n_cigar, &cg, &nc_eff);
-    bf->rec_ncigar.push_back((int32_t)nc_eff);
-    bf->total_ops += nc_eff;
-    off += 4 + (size_t)block_size;
-  }
-  return true;
-}
-
-}  // namespace
-
-extern "C" {
-
-void* pancov_bam_open(const char* path, int n_threads, char* err,
-                      int err_len) {
-  auto* bf = new BamFile();
-  std::vector<uint8_t> raw;
-  auto fail = [&](const char* msg) -> void* {
-    if (err && err_len > 0) std::snprintf(err, err_len, "%s", msg);
-    delete bf;
-    return nullptr;
-  };
-  if (!read_file(path, raw)) return fail("cannot read file");
-  if (raw.size() >= 2 && raw[0] == 0x1f && raw[1] == 0x8b) {
-    if (!inflate_all(raw, n_threads, bf->data))
-      return fail("BGZF inflate failed");
-  } else {
-    bf->data.alloc(raw.size());
-    std::memcpy(bf->data.data(), raw.data(), raw.size());
-  }
-  size_t off = 0;
-  if (!parse_header(bf, off))
-    return fail(bf->error.empty() ? "bad BAM header" : bf->error.c_str());
-  if (!index_records(bf, off)) return fail(bf->error.c_str());
-  return bf;
-}
-
-int64_t pancov_bam_n_targets(void* h) {
-  return (int64_t)((BamFile*)h)->names.size();
-}
-
-int64_t pancov_bam_name_len(void* h, int64_t i) {
-  return (int64_t)((BamFile*)h)->names[i].size();
-}
-
-void pancov_bam_name(void* h, int64_t i, char* dst) {
-  const auto& s = ((BamFile*)h)->names[i];
-  std::memcpy(dst, s.data(), s.size());
-}
-
-int64_t pancov_bam_target_len(void* h, int64_t i) {
-  return ((BamFile*)h)->lengths[i];
-}
-
-int64_t pancov_bam_text_len(void* h) {
-  return (int64_t)((BamFile*)h)->text.size();
-}
-
-void pancov_bam_text(void* h, char* dst) {
-  const auto& s = ((BamFile*)h)->text;
-  std::memcpy(dst, s.data(), s.size());
-}
-
-int64_t pancov_bam_n_records(void* h) {
-  return (int64_t)((BamFile*)h)->rec_off.size();
-}
-
-int64_t pancov_bam_total_ops(void* h) { return ((BamFile*)h)->total_ops; }
-
-// Count CIGAR ops in records [r0, r1) so callers can size buffers.
-int64_t pancov_bam_count_ops(void* h, int64_t r0, int64_t r1) {
-  auto* bf = (BamFile*)h;
-  int64_t m = 0;
-  for (int64_t r = r0; r < r1; r++) m += bf->rec_ncigar[r];
-  return m;
-}
-
-// Fill columnar arrays for records [r0, r1). Buffers must hold
-// (r1-r0) reads and pancov_bam_count_ops(r0, r1) ops. Returns ops
-// written.
-int64_t pancov_bam_decode(void* h, int64_t r0, int64_t r1, int32_t* tid,
-                          int32_t* pos, int32_t* flag, int32_t* mapq,
-                          int32_t* n_ops, int32_t* op_code,
-                          int32_t* op_len, int32_t* op_read) {
-  auto* bf = (BamFile*)h;
-  const uint8_t* d = bf->data.data();
-  int64_t m = 0;
-  for (int64_t r = r0; r < r1; r++) {
-    const uint8_t* p = d + bf->rec_off[r];
-    int64_t i = r - r0;
-    tid[i] = (int32_t)le32(p);
-    pos[i] = (int32_t)le32(p + 4);
-    mapq[i] = p[9];
-    flag[i] = le16(p + 14);
-    const uint8_t* cig;
-    int64_t nc;
-    effective_cigar(p, le32(p - 4), le16(p + 12), &cig, &nc);
-    n_ops[i] = (int32_t)nc;
-    for (int64_t k = 0; k < nc; k++) {
-      uint32_t v = le32(cig + 4 * k);
-      op_code[m] = (int32_t)(v & 0xF);
-      op_len[m] = (int32_t)(v >> 4);
-      op_read[m] = (int32_t)i;
-      m++;
-    }
-  }
-  return m;
-}
-
-void pancov_bam_close(void* h) { delete (BamFile*)h; }
-
-namespace {
-
 // CIGAR op class masks (SAMv1 §4.2; same semantics as the reference
 // hot loop at src/PanDepth.cpp:440-459)
 constexpr uint32_t kRefConsume = 0b110001101;  // M D N = X
 constexpr uint32_t kAddsDepth = 0b110000001;   // M = X
 
-struct EvChunk {
-  std::vector<int64_t> starts, ends;
-};
-
-void extract_chunk(const BamFile* bf, int64_t r0, int64_t r1,
-                   uint32_t flags_mask, int32_t min_mapq,
-                   const int64_t* offsets, const int64_t* limits,
-                   int64_t n_targets, EvChunk* out) {
-  const uint8_t* d = bf->data.data();
-  for (int64_t r = r0; r < r1; r++) {
-    const uint8_t* p = d + bf->rec_off[r];
-    int32_t tid = (int32_t)le32(p);
-    if (tid < 0 || tid >= n_targets) continue;
-    uint16_t flag = le16(p + 14);
-    if (flag & flags_mask) continue;
-    if (min_mapq >= 1 && p[9] < min_mapq) continue;
-    if (!bf->rec_ncigar[r]) continue;
-    int64_t cur = offsets[tid] + (int32_t)le32(p + 4);
-    int64_t floor = offsets[tid], limit = limits[tid];
-    const uint8_t* cig;
-    int64_t nc;
-    effective_cigar(p, le32(p - 4), le16(p + 12), &cig, &nc);
-    for (int64_t k = 0; k < nc; k++) {
-      uint32_t v = le32(cig + 4 * k);
-      uint32_t op = v & 0xF;
-      int64_t len = v >> 4;
-      if ((kAddsDepth >> op) & 1) {
-        int64_t s = cur < floor ? floor : (cur > limit ? limit : cur);
-        int64_t e = cur + len;
-        e = e < floor ? floor : (e > limit ? limit : e);
-        if (e > s) {
-          out->starts.push_back(s);
-          out->ends.push_back(e);
-        }
-      }
-      if ((kRefConsume >> op) & 1) cur += len;
-    }
-  }
-}
-
-}  // namespace
-
-// Extract coverage events for records [r0, r1): every kept M/=/X
-// segment emits its clamped global [start, end). Threaded over record
-// ranges (event order is irrelevant — the device sorts). Buffers must
-// hold pancov_bam_count_ops(r0, r1) entries; returns events written.
-int64_t pancov_bam_events(void* h, int64_t r0, int64_t r1,
-                          uint32_t flags_mask, int32_t min_mapq,
-                          const int64_t* offsets, const int64_t* limits,
-                          int64_t n_targets, int n_threads,
-                          int64_t* starts, int64_t* ends) {
-  auto* bf = (BamFile*)h;
-  if (n_threads < 1) n_threads = 1;
-  int64_t span = r1 - r0;
-  if (span <= 0) return 0;
-  int t = (int)std::min<int64_t>(n_threads, (span + 4095) / 4096);
-  std::vector<EvChunk> chunks(t);
-  std::vector<std::thread> ts;
-  int64_t per = (span + t - 1) / t;
-  for (int i = 0; i < t; i++) {
-    int64_t a = r0 + i * per;
-    int64_t b = std::min(r1, a + per);
-    if (a >= b) continue;
-    ts.emplace_back(extract_chunk, bf, a, b, flags_mask, min_mapq,
-                    offsets, limits, n_targets, &chunks[i]);
-  }
-  for (auto& th : ts) th.join();
-  int64_t m = 0;
-  for (auto& c : chunks) {
-    std::memcpy(starts + m, c.starts.data(),
-                c.starts.size() * sizeof(int64_t));
-    std::memcpy(ends + m, c.ends.data(),
-                c.ends.size() * sizeof(int64_t));
-    m += (int64_t)c.starts.size();
-  }
-  return m;
-}
-
-}  // extern "C"
-
-// ---------------------------------------------------------------------
-// Fully pipelined load: parallel BGZF inflate with an index+extract
-// walker chasing the inflated frontier — one pass over the record
-// bytes produces both the record index and the coverage events, so the
-// whole host side runs at inflate speed.
-
-namespace {
-
-struct LoadedBam {
-  BamFile bam;
-  std::vector<int64_t> ev_starts, ev_ends;
-  std::vector<int64_t> offsets, limits;
-};
-
-// per-walker output buffers (ranged mode walks in parallel)
+// per-walker output: the serial walk's, or each split's
 struct EvSink {
-  std::vector<size_t> rec_off;
-  std::vector<int32_t> rec_nc;
-  int64_t ops = 0;
   int64_t n_rec = 0;
   int64_t n_kept = 0;  // records kept by the -x/-q and region filters
-  bool track_records = true;  // streaming sinks only count
   std::vector<int64_t> es, ee;
-  // mode 1's monotone cursor (WalkCtx::mono_hint), the walker's own: the
+  // mode 1's monotone cursor (WalkCtx), the walker's own: the
   // contig of its last record, that record's start, and the first fetch
   // window of the contig that ends past it (m1_tid -1: none yet)
   int64_t m1_tid = -1, m1_pos = 0, m1_hint = 0;
 };
 
-// Record filtering + event extraction shared by the one-shot loader
-// and the streaming loader. Replicates which reads the reference
-// actually counts (see pancov_bam_load's header comment for the
-// region_mode semantics).
+// Record filtering + event extraction of every stream walk. Replicates
+// which reads the reference actually counts: reg_* (n_regions 0: none)
+// restrict event extraction to target regions, with the semantics that
+// region_mode selects:
+//   1 = indexed fetch: keep reads overlapping one of the disjoint,
+//       per-tid-sorted 0-based half-open [reg_start, reg_end) windows
+//       (htslib region strings padded +-1, src/PanDepth.cpp:700-703);
+//   2 = no-index sorted-stream cursor (src/PanDepth.cpp:4604-4671):
+//       regions are the UNPADDED 1-based closed merged spans; a
+//       per-tid cursor advances with the (coordinate-sorted) stream,
+//       dropping reads that end before the current region start,
+//       counting the read that advances past the last region, and
+//       skipping the chromosome afterwards.
+// reg_off has n_targets+1 entries indexing the flat start/end arrays.
+// offsets/limits are the genome layout (pancov_stream_open's ext_*).
 struct WalkCtx {
   uint32_t flags_mask = 0;
   int32_t min_mapq = -1;
@@ -619,17 +284,6 @@ struct WalkCtx {
   std::vector<uint8_t> chr_done;
   int64_t chrs_left = 0;
   bool stream_done = false;  // the reference `break`s out of the loop
-  // mode-1 monotone window cursor (the stream's walks): fetch windows
-  // are merged, non-overlapping and sorted, and a coordinate-sorted
-  // stream's positions are nondecreasing within a contig, so the overlap
-  // test advances the sink's cursor amortized O(1) instead of a
-  // log2(windows) binary search PER RECORD — at 30x deep gene mode (33k
-  // windows/contig, 240M records) the searches WERE the walk. A record
-  // on another contig, or before the last (unsorted input), seeds the
-  // cursor by a binary search, so semantics never change. The cursor
-  // lives in the walker's EvSink, so threads that share one ctx (the
-  // stream's splits) never share it.
-  bool mono_hint = false;
 
   void init_cursor() {
     if (n_regions > 0 && region_mode == 2) {
@@ -643,8 +297,8 @@ struct WalkCtx {
     }
   }
 
-  // one record at `off2` in stream bytes d[0, total): index + filter +
-  // extract into `sk`; returns next offset, or 0 on malformed framing
+  // one record at `off2` in stream bytes d[0, total): filter + extract
+  // into `sk`; returns next offset, or 0 on malformed framing
   size_t process_record(const uint8_t* d, size_t total, size_t off2,
                         EvSink& sk) {
     uint32_t block_size = le32(d + off2);
@@ -656,11 +310,6 @@ struct WalkCtx {
     const uint8_t* cig;
     int64_t nc;
     effective_cigar(p, block_size, nc_raw, &cig, &nc);
-    if (sk.track_records) {
-      sk.rec_off.push_back(off2 + 4);
-      sk.rec_nc.push_back((int32_t)nc);
-      sk.ops += nc;
-    }
     sk.n_rec++;
 
     // NB: no-CIGAR records (unmapped `*`) are NOT pre-filtered here —
@@ -684,29 +333,29 @@ struct WalkCtx {
       }
       int64_t end0 = span > 0 ? pos0 + span : pos0 + 1;
       if (region_mode == 1) {
-        // does the read overlap any fetch window of its contig?
+        // does the read overlap any fetch window of its contig? Fetch
+        // windows are merged, non-overlapping and sorted, and a
+        // coordinate-sorted stream's positions are nondecreasing within a
+        // contig, so the first window that ends past pos0 advances the
+        // sink's cursor amortized O(1) instead of a log2(windows) binary
+        // search PER RECORD: at 30x deep gene mode (33k windows/contig,
+        // 240M records) the searches WERE the walk. A record on another
+        // contig, or before the last (unsorted input), seeds the cursor by
+        // a binary search, so semantics never change. The cursor lives in
+        // the walker's EvSink, so threads that share one ctx (the splits)
+        // never share it.
         int64_t a = reg_off[tid], b2 = reg_off[tid + 1];
-        if (mono_hint) {
-          // the first window that ends past pos0 (ends are sorted too)
-          int64_t h;
-          if (sk.m1_tid == tid && pos0 >= sk.m1_pos) {
-            h = sk.m1_hint;
-            while (h < b2 && reg_end[h] <= pos0) h++;
-          } else {
-            h = std::upper_bound(reg_end + a, reg_end + b2, pos0) -
-                reg_end;
-          }
-          sk.m1_tid = tid;
-          sk.m1_pos = pos0;
-          sk.m1_hint = h;
-          keep = h < b2 && reg_start[h] < end0;
+        int64_t h;
+        if (sk.m1_tid == tid && pos0 >= sk.m1_pos) {
+          h = sk.m1_hint;
+          while (h < b2 && reg_end[h] <= pos0) h++;
         } else {
-          const int64_t* first = reg_start + a;
-          const int64_t* last = reg_start + b2;
-          const int64_t* it = std::upper_bound(first, last, end0 - 1);
-          keep = (it != first) &&
-                 reg_end[a + (it - first) - 1] > pos0;
+          h = std::upper_bound(reg_end + a, reg_end + b2, pos0) - reg_end;
         }
+        sk.m1_tid = tid;
+        sk.m1_pos = pos0;
+        sk.m1_hint = h;
+        keep = h < b2 && reg_start[h] < end0;
       } else if (region_mode == 2) {
         // stateful sorted-stream cursor
         if (stream_done || chr_done[tid]) {
@@ -756,353 +405,6 @@ struct WalkCtx {
   }
 };
 
-}  // namespace
-
-extern "C" {
-
-// ext_offsets/ext_limits (may be null with n_ext=0): externally imposed
-// genome layout (multi-sample mode uses the FIRST file's contig space,
-// reference quirk Q5, src/PanDepth.cpp:2041-2061). Otherwise the layout
-// is derived from this file's header with `pad` slack cells per contig.
-//
-// reg_* (may be null with n_regions=0): restrict event extraction to
-// target regions, replicating which reads the reference actually
-// counts. region_mode selects the semantics:
-//   1 = indexed fetch: keep reads overlapping one of the disjoint,
-//       per-tid-sorted 0-based half-open [reg_start, reg_end) windows
-//       (htslib region strings padded +-1, src/PanDepth.cpp:700-703);
-//   2 = no-index sorted-stream cursor (src/PanDepth.cpp:4604-4671):
-//       regions are the UNPADDED 1-based closed merged spans; a
-//       per-tid cursor advances with the (coordinate-sorted) stream,
-//       dropping reads that end before the current region start,
-//       counting the read that advances past the last region, and
-//       skipping the chromosome afterwards.
-// reg_off has n_targets+1 entries indexing the flat start/end arrays.
-void* pancov_bam_load(const char* path, int n_threads,
-                      uint32_t flags_mask, int32_t min_mapq, int64_t pad,
-                      const int64_t* ext_offsets,
-                      const int64_t* ext_limits, int64_t n_ext,
-                      const int64_t* reg_off, const int64_t* reg_start,
-                      const int64_t* reg_end, int64_t n_regions,
-                      int region_mode, const int64_t* vr_start,
-                      const int64_t* vr_end, int64_t n_vr, char* err,
-                      int err_len) {
-  auto* lb = new LoadedBam();
-  BamFile* bf = &lb->bam;
-  auto fail = [&](const char* msg) -> void* {
-    if (err && err_len > 0) std::snprintf(err, err_len, "%s", msg);
-    delete lb;
-    return nullptr;
-  };
-  std::vector<uint8_t> raw;
-  if (!read_file(path, raw)) return fail("cannot read file");
-
-  bool bgzf = raw.size() >= 2 && raw[0] == 0x1f && raw[1] == 0x8b;
-  std::vector<Block> blocks;
-  size_t total = 0;
-  std::unique_ptr<std::atomic<uint32_t>[]> done;
-  std::unique_ptr<std::atomic<uint32_t>[]> claim;
-  std::vector<std::thread> workers;
-  std::atomic<size_t> next(0);
-  std::atomic<bool> ok(true);
-
-  auto try_inflate = [&](size_t k) -> bool {
-    uint32_t expect = 0;
-    if (!claim[k].compare_exchange_strong(expect, 1)) return false;
-    const Block& b = blocks[k];
-    if (b.out_len &&
-        !inflate_block(raw.data() + b.in_off, b.in_len,
-                       bf->data.data() + b.out_off, b.out_len))
-      ok.store(false);
-    done[k].store(1, std::memory_order_release);
-    return true;
-  };
-
-  if (bgzf) {
-    if (!scan_blocks(raw, blocks, total)) return fail("bad BGZF framing");
-    bf->data.alloc(total);
-    done.reset(new std::atomic<uint32_t>[blocks.size() + 1]);
-    claim.reset(new std::atomic<uint32_t>[blocks.size() + 1]);
-    for (size_t i = 0; i <= blocks.size(); i++) {
-      done[i].store(0);
-      claim[i].store(0);
-    }
-    int t = n_threads > 1 ? n_threads - 1 : 1;
-    if (n_vr == 0)
-      for (int i = 0; i < t; i++)
-        workers.emplace_back([&]() {
-          for (;;) {
-            size_t k = next.fetch_add(1);
-            if (k >= blocks.size() || !ok.load()) break;
-            try_inflate(k);
-          }
-        });
-  } else {
-    bf->data.alloc(raw.size());
-    std::memcpy(bf->data.data(), raw.data(), raw.size());
-    total = raw.size();
-  }
-
-  // frontier: how many contiguous bytes from the start are ready; the
-  // chaser work-steals the frontier block instead of idling on it
-  size_t frontier_block = 0;
-  size_t ready = bgzf ? 0 : total;
-  auto wait_ready = [&](size_t need) -> bool {
-    while (ready < need) {
-      if (!ok.load()) return false;
-      if (frontier_block < blocks.size() &&
-          done[frontier_block].load(std::memory_order_acquire)) {
-        ready += blocks[frontier_block].out_len;
-        frontier_block++;
-      } else if (frontier_block >= blocks.size() ||
-                 !try_inflate(frontier_block)) {
-        // another thread owns the frontier block; a tight sched_yield
-        // loop here burns kernel time, so nap instead
-        std::this_thread::sleep_for(std::chrono::microseconds(50));
-      }
-    }
-    return true;
-  };
-
-  auto finish = [&]() {
-    ok.store(false);
-    next.store(blocks.size() + 1);
-    for (auto& w : workers) w.join();
-  };
-
-  // header: parse incrementally, never reading past the inflated
-  // frontier (bytes beyond it are uninitialized)
-  size_t off = 0;
-  {
-    if (total < 12 || !wait_ready(12)) {
-      finish();
-      return fail("not a BAM stream");
-    }
-    if (std::memcmp(bf->data.data(), "BAM\x01", 4) != 0) {
-      finish();
-      return fail("not a BAM stream");
-    }
-    uint32_t l_text = le32(bf->data.data() + 4);
-    if (8 + (size_t)l_text + 4 > total ||
-        !wait_ready(8 + (size_t)l_text + 4)) {
-      finish();
-      return fail("truncated BAM header");
-    }
-    const char* tp = (const char*)bf->data.data() + 8;
-    bf->text.assign(tp, strnlen(tp, l_text));
-    off = 8 + l_text;
-    uint32_t n_ref = le32(bf->data.data() + off);
-    off += 4;
-    for (uint32_t i = 0; i < n_ref; i++) {
-      if (off + 4 > total || !wait_ready(off + 4)) {
-        finish();
-        return fail("truncated BAM header");
-      }
-      uint32_t l_name = le32(bf->data.data() + off);
-      off += 4;
-      // l_name counts the NUL terminator; 0 is malformed
-      if (l_name < 1 || off + l_name + 4 > total ||
-          !wait_ready(off + l_name + 4)) {
-        finish();
-        return fail("truncated BAM header");
-      }
-      bf->names.emplace_back((const char*)bf->data.data() + off,
-                             l_name - 1);
-      off += l_name;
-      bf->lengths.push_back((int32_t)le32(bf->data.data() + off));
-      off += 4;
-    }
-  }
-
-  // genome layout
-  int64_t n_targets;
-  if (n_ext > 0) {
-    lb->offsets.assign(ext_offsets, ext_offsets + n_ext);
-    lb->limits.assign(ext_limits, ext_limits + n_ext);
-    n_targets = n_ext;
-  } else {
-    int64_t acc = 0;
-    for (size_t i = 0; i < bf->lengths.size(); i++) {
-      lb->offsets.push_back(acc);
-      acc += bf->lengths[i] + pad;
-      lb->limits.push_back(acc);
-    }
-    n_targets = (int64_t)bf->lengths.size();
-  }
-
-  // chase: index + extract in one walk
-  size_t guess = (total - off) / 100 + 16;
-  bf->rec_off.reserve(guess);
-  bf->rec_ncigar.reserve(guess);
-  lb->ev_starts.reserve(guess);
-  lb->ev_ends.reserve(guess);
-  WalkCtx ctx;
-  ctx.flags_mask = flags_mask;
-  ctx.min_mapq = min_mapq;
-  ctx.offsets = lb->offsets.data();
-  ctx.limits = lb->limits.data();
-  ctx.n_targets = n_targets;
-  ctx.reg_off = reg_off;
-  ctx.reg_start = reg_start;
-  ctx.reg_end = reg_end;
-  ctx.n_regions = n_regions;
-  ctx.region_mode = region_mode;
-  ctx.init_cursor();
-  const uint8_t* d = bf->data.data();
-  using Sink = EvSink;
-  auto process_record = [&](size_t off2, Sink& sk) -> size_t {
-    return ctx.process_record(d, total, off2, sk);
-  };
-
-  auto merge_sinks = [&](std::vector<Sink>& sinks) {
-    size_t nr = 0, nev = 0;
-    for (auto& s : sinks) {
-      nr += s.rec_off.size();
-      nev += s.es.size();
-    }
-    bf->rec_off.reserve(nr);
-    bf->rec_ncigar.reserve(nr);
-    lb->ev_starts.reserve(nev);
-    lb->ev_ends.reserve(nev);
-    for (auto& s : sinks) {
-      bf->rec_off.insert(bf->rec_off.end(), s.rec_off.begin(),
-                         s.rec_off.end());
-      bf->rec_ncigar.insert(bf->rec_ncigar.end(), s.rec_nc.begin(),
-                            s.rec_nc.end());
-      bf->total_ops += s.ops;
-      lb->ev_starts.insert(lb->ev_starts.end(), s.es.begin(),
-                           s.es.end());
-      lb->ev_ends.insert(lb->ev_ends.end(), s.ee.begin(), s.ee.end());
-    }
-  };
-
-  if (n_vr > 0 && bgzf && region_mode != 2) {
-    // index-driven load: inflate and walk only the blocks covered by
-    // the merged virtual-offset ranges (plus the header blocks already
-    // inflated above by wait_ready)
-    size_t nb = blocks.size();
-    std::vector<size_t> src_offs(nb);
-    for (size_t i = 0; i < nb; i++) src_offs[i] = blocks[i].src_off;
-    auto floor_block = [&](int64_t coff) -> size_t {
-      auto it = std::upper_bound(src_offs.begin(), src_offs.end(),
-                                 (size_t)coff);
-      return it == src_offs.begin() ? 0 : (it - src_offs.begin() - 1);
-    };
-    std::vector<size_t> needed;
-    for (int64_t r = 0; r < n_vr; r++) {
-      size_t b0 = floor_block(vr_start[r] >> 16);
-      size_t b1 = floor_block(vr_end[r] >> 16);
-      for (size_t b = b0; b <= b1 && b < nb; b++) needed.push_back(b);
-    }
-    std::atomic<size_t> ni(0);
-    auto rworker = [&]() {
-      for (;;) {
-        size_t k = ni.fetch_add(1);
-        if (k >= needed.size() || !ok.load()) break;
-        try_inflate(needed[k]);
-      }
-    };
-    std::vector<std::thread> rts;
-    for (int i = 1; i < n_threads; i++) rts.emplace_back(rworker);
-    rworker();
-    for (auto& t2 : rts) t2.join();
-    if (!ok.load()) return fail("BGZF inflate failed");
-
-    // walk the ranges in parallel (stateless mode-1 filtering only;
-    // per-range sinks merge back in file order)
-    std::vector<Sink> sinks(n_vr);
-    std::atomic<int64_t> nrange(0);
-    std::atomic<bool> walk_ok(true);
-    auto walker = [&]() {
-      for (;;) {
-        int64_t r = nrange.fetch_add(1);
-        if (r >= n_vr || !walk_ok.load()) break;
-        size_t cb = floor_block(vr_start[r] >> 16);
-        size_t off2 = blocks[cb].out_off + (vr_start[r] & 0xFFFF);
-        for (;;) {
-          while (cb + 1 < nb && blocks[cb + 1].out_off <= off2) cb++;
-          int64_t virt = ((int64_t)blocks[cb].src_off << 16) |
-                         (int64_t)(off2 - blocks[cb].out_off);
-          if (virt >= vr_end[r] || off2 + 4 > total) break;
-          size_t nxt = process_record(off2, sinks[r]);
-          if (nxt == 0) {
-            walk_ok.store(false);
-            break;
-          }
-          off2 = nxt;
-        }
-      }
-    };
-    std::vector<std::thread> wts;
-    for (int i = 1; i < n_threads && i < n_vr; i++)
-      wts.emplace_back(walker);
-    walker();
-    for (auto& t2 : wts) t2.join();
-    if (!walk_ok.load()) {
-      finish();
-      return fail("truncated BAM record");
-    }
-    merge_sinks(sinks);
-    return lb;
-  }
-
-  std::vector<Sink> one(1);
-  while (off + 4 <= total) {
-    if (!wait_ready(std::min(total, off + 4))) break;
-    uint32_t bsz = le32(d + off);
-    if (off + 4 + bsz > total || bsz < 32) {
-      finish();
-      return fail("truncated BAM record");
-    }
-    if (!wait_ready(off + 4 + bsz)) break;
-    size_t nxt = process_record(off, one[0]);
-    if (nxt == 0) {
-      finish();
-      return fail("truncated BAM record");
-    }
-    off = nxt;
-  }
-  bool good = ok.load();
-  for (auto& w : workers) w.join();
-  if (!good) return fail("BGZF inflate failed");
-  merge_sinks(one);
-  return lb;
-}
-
-int64_t pancov_load_n_events(void* h) {
-  return (int64_t)((LoadedBam*)h)->ev_starts.size();
-}
-
-void pancov_load_events(void* h, int64_t* starts, int64_t* ends) {
-  auto* lb = (LoadedBam*)h;
-  std::memcpy(starts, lb->ev_starts.data(),
-              lb->ev_starts.size() * sizeof(int64_t));
-  std::memcpy(ends, lb->ev_ends.data(),
-              lb->ev_ends.size() * sizeof(int64_t));
-}
-
-// int32 variant: fills caller buffers of `cap` elements, padding the
-// tail with `sentinel` — the exact layout CoverageEngine transfers, so
-// Python never touches the event data.
-void pancov_load_events32(void* h, int32_t* starts, int32_t* ends,
-                          int64_t cap, int32_t sentinel) {
-  auto* lb = (LoadedBam*)h;
-  int64_t m = (int64_t)lb->ev_starts.size();
-  for (int64_t i = 0; i < m; i++) {
-    starts[i] = (int32_t)lb->ev_starts[i];
-    ends[i] = (int32_t)lb->ev_ends[i];
-  }
-  for (int64_t i = m; i < cap; i++) {
-    starts[i] = sentinel;
-    ends[i] = sentinel;
-  }
-}
-
-// the embedded BamFile supports all pancov_bam_* accessors
-void* pancov_load_bam(void* h) { return &((LoadedBam*)h)->bam; }
-
-void pancov_load_close(void* h) { delete (LoadedBam*)h; }
-
 // ---------------------------------------------------------------------
 // Streaming bounded-memory load: the file is processed in fixed-size
 // compressed windows (read -> parallel inflate -> record walk ->
@@ -1113,10 +415,8 @@ void pancov_load_close(void* h) { delete (LoadedBam*)h; }
 // model (src/PanDepth.cpp:676-723), where htslib streams records and
 // never holds the file.
 
-namespace {
-
-// like scan_blocks but tolerates a trailing partial block, reporting
-// how many bytes were consumed; malformed framing still returns false
+// Scan BGZF member headers, tolerating a trailing partial block and
+// reporting how many bytes were consumed; malformed framing returns false
 bool scan_blocks_partial(const uint8_t* raw, size_t n,
                          std::vector<Block>& blocks, size_t& total_out,
                          size_t& consumed) {
@@ -1309,7 +609,7 @@ struct StreamBam {
   int64_t total_records = 0;
   StreamWin cur;
   bool have_cur = false;
-  int64_t take_pos = 0;  // encoder cursor into cur (take_enc)
+  int64_t take_pos = 0;  // encoder cursor into cur (take_enc_acc)
   // feed-progress estimate for the consumer: compressed bytes consumed /
   // total to consume (the whole file, or the header's blocks and each
   // range's bytes from its first block to its end block's start)
@@ -1406,7 +706,6 @@ struct StreamBam {
     MapBytes raw;
     MapBytes dec;
     EvSink sink;
-    sink.track_records = false;
     auto now = [] { return std::chrono::steady_clock::now(); };
     auto ms = ms_between;
     // carries live at the FRONT of the persistent buffers; lengths
@@ -1988,7 +1287,6 @@ struct StreamBam {
     const int64_t ring = kSplitsAhead * n_threads;
     const size_t cap = window_bytes * 4;  // the serial walk's dec cap
     std::vector<SplitSlot> slots(ring);
-    for (auto& sl : slots) sl.sink.track_records = false;
     std::mutex sm;  // guards the fields below and the slots' k, state
     std::condition_variable scv;
     int64_t next_k = 0, handed = 0, bad_k = -1;
@@ -2160,12 +1458,17 @@ struct StreamBam {
 
 extern "C" {
 
-// Streaming counterpart of pancov_bam_load (same layout/region
-// semantics). window_bytes <= 0 selects the default (32 MB compressed
-// per window; peak RSS ~ 2 windows). vr: n_vr sorted (v0, v1) virtual-
-// offset pairs from the index — when given (region_mode 1 + BGZF only)
-// the producer reads only them, inflating only target-overlapping
-// blocks: the reference's sam_itr block skipping with bounded memory.
+// Open the BAM stream of `path`. ext_offsets/ext_limits (may be null
+// with n_ext=0): externally imposed genome layout (multi-sample mode
+// uses the FIRST file's contig space, reference quirk Q5,
+// src/PanDepth.cpp:2041-2061). Otherwise the layout is derived from this
+// file's header with `pad` slack cells per contig. reg_*, region_mode:
+// the region filter (WalkCtx). window_bytes <= 0 selects the default
+// (32 MB compressed per window; peak RSS ~ 2 windows). vr: n_vr sorted
+// (v0, v1) virtual-offset pairs from the index — when given (region_mode
+// 1 + BGZF only) the producer reads only them, inflating only
+// target-overlapping blocks: the reference's sam_itr block skipping with
+// bounded memory.
 // cuts: n_cuts record-start virtual offsets from the index (its chunk
 // starts), for a BGZF file with no region filter, or inside the vr
 // ranges. The ranges (a long one cut at the cuts inside it), or the
@@ -2291,8 +1594,6 @@ void* pancov_stream_open(const char* path, int n_threads,
   sb->ctx.limits = sb->limits.data();
   sb->ctx.n_targets = (int64_t)sb->offsets.size();
   sb->ctx.init_cursor();
-  // mode 1's monotone cursor: each walker keeps its own (EvSink)
-  sb->ctx.mono_hint = true;
 
   // ranged streaming: sorted (v0, v1) pairs; a range that starts in or
   // before the previous range's end block joins it, so that no block
@@ -2366,12 +1667,6 @@ int64_t pancov_stream_wait(void* h) {
   return (int64_t)sb->cur.es.size();
 }
 
-int64_t pancov_stream_win_records(void* h) {
-  auto* sb = (StreamBam*)h;
-  std::lock_guard<std::mutex> lk(sb->mu);
-  return sb->have_cur ? sb->cur.n_rec : 0;
-}
-
 // compressed-byte progress of the producer walk: an ESTIMATE for
 // consumer-side planning, not an exact accounting — a ranged walk counts
 // each range up to its end block's start, and `done` trails the records
@@ -2397,8 +1692,8 @@ void release_cur(StreamBam* sb) {
 
 }  // namespace
 
-// take32/take64 drain from take_pos so they compose with a partial
-// take_enc (the fallback when an escape list overflows mid-window)
+// take32/take64 hand out the current window from take_pos (0 unless
+// take_enc_acc stopped inside it) and release it
 void pancov_stream_take32(void* h, int32_t* s, int32_t* e, int64_t cap,
                           int32_t sentinel) {
   auto* sb = (StreamBam*)h;
@@ -2427,87 +1722,28 @@ void pancov_stream_take64(void* h, int64_t* s, int64_t* e) {
   release_cur(sb);
 }
 
-int64_t pancov_stream_win_remaining(void* h) {
-  auto* sb = (StreamBam*)h;
-  return (int64_t)sb->cur.es.size() - sb->take_pos;
-}
-
-// Compact event encoding for the device link (~2 B/event vs 8):
-// consumes up to `cap` (start, end) pairs of the current window.
-// d8[i] = zigzag(start_i - start_{i-1}) when it fits [0, 254], else
-// 255 with the true int64 delta appended to excd; l8[i] =
-// end_i - start_i when < 255, else 255 with the true int64 length
-// appended to excl. *base_out = first encoded start (so d8[0]
-// encodes delta 0). Tails of all four buffers are zeroed (a zero
-// slot decodes to a zero-length event at the previous position —
-// depth-neutral). Returns pairs encoded; 0 when the window is
-// exhausted (releasing it — call wait() for the next). Stops early
-// when an escape list would overflow exc_cap (the caller falls back
-// to take32/take64 for pathological inputs). Positions are full
-// int64 (escapes carry any magnitude; the wire bytes stay 2/event).
-int64_t pancov_stream_take_enc(void* h, uint8_t* d8, uint8_t* l8,
-                               int64_t* excd, int64_t* excl,
-                               int64_t cap, int64_t exc_cap,
-                               int64_t* base_out, int64_t* n_excd_out,
-                               int64_t* n_excl_out) {
-  auto* sb = (StreamBam*)h;
-  const auto& es = sb->cur.es;
-  const auto& ee = sb->cur.ee;
-  int64_t m = (int64_t)es.size();
-  int64_t i = sb->take_pos;
-  *n_excd_out = 0;
-  *n_excl_out = 0;
-  *base_out = 0;
-  if (i >= m) {
-    release_cur(sb);
-    return 0;
-  }
-  int64_t n = 0, nd = 0, nl = 0;
-  int64_t prev = es[i];
-  *base_out = prev;
-  while (i < m && n < cap) {
-    // (the first pair can never stall: its delta is 0 and a length
-    // escape fits while nl == 0 < exc_cap; -1 below is still guarded)
-    int64_t s = es[i];
-    int64_t len64 = ee[i] - es[i];
-    int64_t delta = s - prev;
-    uint64_t zz = ((uint64_t)delta << 1) ^ (uint64_t)(delta >> 63);
-    bool de = zz >= 255;
-    bool le = len64 >= 255;
-    if ((de && nd >= exc_cap) || (le && nl >= exc_cap)) break;
-    d8[n] = de ? 255 : (uint8_t)zz;
-    if (de) excd[nd++] = delta;
-    l8[n] = le ? 255 : (uint8_t)len64;
-    if (le) excl[nl++] = len64;
-    prev = s;
-    i++;
-    n++;
-  }
-  sb->take_pos = i;
-  if (n == 0) return -1;  // stall: drain the rest via take32/take64
-  std::memset(d8 + n, 0, (size_t)(cap - n));
-  std::memset(l8 + n, 0, (size_t)(cap - n));
-  std::memset(excd + nd, 0, sizeof(int64_t) * (size_t)(exc_cap - nd));
-  std::memset(excl + nl, 0, sizeof(int64_t) * (size_t)(exc_cap - nl));
-  *n_excd_out = nd;
-  *n_excl_out = nl;
-  return n;
-}
-
-// Accumulating encoder: fills the buffer ACROSS stream windows
-// (blocking on the producer as needed) so every upload is a full
-// cap-size buffer — padding waste in the device sort stays O(1/K)
-// instead of O(windows). Returns pairs encoded (0 = clean EOF,
-// -2 = stream error). The delta chain runs through window seams, so
-// no seam fixups are needed. Templated over the code width: uint8
-// (escape at 255; 2 B/pair, deep-coverage profile) and uint16
-// (escape at 65535; 4 B/pair — sparse-coverage runs where start gaps
-// exceed the 8-bit zigzag range, detected by the caller via a
-// saturated escape list).
 }  // extern "C" (template below needs C++ linkage)
-}  // outer extern "C" level
 
 namespace {
+
+// Accumulating encoder for the device link (~2 B/event vs 8): fills
+// the buffer ACROSS stream windows (blocking on the producer as needed)
+// so every upload is a full cap-size buffer — padding waste in the
+// device sort stays O(1/K) instead of O(windows). dd[i] =
+// zigzag(start_i - start_{i-1}) when it is below the escape code, else
+// the escape with the true int64 delta appended to excd; ll[i] =
+// end_i - start_i when below the escape, else the escape with the true
+// int64 length appended to excl. *base_out = first encoded start (so
+// dd[0] encodes delta 0). Tails of all four buffers are zeroed (a zero
+// slot decodes to a zero-length event at the previous position —
+// depth-neutral). Returns pairs encoded (0 = clean EOF, -2 = stream
+// error); a full escape list hands out a partial buffer. The delta chain
+// runs through window seams, so no seam fixups are needed. Positions are
+// full int64 (escapes carry any magnitude). Templated over the code
+// width: uint8 (escape at 255; 2 B/pair, deep-coverage profile) and
+// uint16 (escape at 65535; 4 B/pair — sparse-coverage runs where start
+// gaps exceed the 8-bit zigzag range, detected by the caller via a
+// saturated escape list).
 template <typename T>
 int64_t take_enc_acc_impl(StreamBam* sb, T* dd, T* ll,
                           int64_t* excd, int64_t* excl,
@@ -2586,7 +1822,6 @@ int64_t take_enc_acc_impl(StreamBam* sb, T* dd, T* ll,
 }
 }  // namespace
 
-extern "C" {
 extern "C" {
 
 int64_t pancov_stream_take_enc_acc(void* h, uint8_t* d8, uint8_t* l8,
@@ -2741,8 +1976,6 @@ bool read_text_maybe_gz(const char* path, std::vector<uint8_t>& out) {
 }
 
 }  // namespace
-
-}  // extern "C" (BAM load API)
 
 extern "C" {
 

@@ -106,7 +106,7 @@ class Staged(NamedTuple):
     lengths: np.ndarray
     ref_bases: Optional[Dict[int, bytes]]
     regions: Optional[tuple]     # the read filter, see read_regions
-    # the first file's open reader: SAM or CRAM, or the native loader
+    # the first file's open reader: SAM or CRAM, or the native stream
     reader: Optional[object]
     # the encoded windows pulled before the engine existed, and the
     # puller that goes on with the stream
@@ -224,8 +224,7 @@ def read_batches(path: str, config: RunConfig, regions=None,
     ``regions`` marked tid = -1. A later member of a ``.list`` passes
     ``n_targets``, the first file's contig count: its reads on a tid past
     that are marked -1 too."""
-    r = reader if reader is not None else open_alignment(
-        path, threads=config.threads)
+    r = reader if reader is not None else open_alignment(path)
     cursor = RegionCursor(regions) if regions is not None and \
         regions[3] == 2 else None
     for batch in r.batches(max_reads=config.max_reads_per_batch):
@@ -239,17 +238,16 @@ def read_batches(path: str, config: RunConfig, regions=None,
 
 
 def _add_loaded(engine: Engine, loader, n_events: int) -> None:
-    """A one-shot native loader's events into ``engine``: sentinel-padded
-    32-bit words where the engine takes them, else int64 pairs."""
+    """A native PAF or SAM loader's events into ``engine``:
+    sentinel-padded 32-bit words where the engine takes them, else int64
+    pairs."""
     if engine.wants_padded_events and engine.pos_bits32:
         s32, e32 = loader.events32_padded(max(n_events, 1),
                                           engine.pos_sentinel32)[:2]
         engine.add_padded_events(s32.view(engine.pos_dtype),
                                  e32.view(engine.pos_dtype))
     else:
-        loaded = loader.events64() if hasattr(loader, "events64") \
-            else loader.events()
-        engine.add_start_end(*loaded)
+        engine.add_start_end(*loader.events64())
 
 
 def _feed_sam_native(engine: Engine, path: str, config: RunConfig,
@@ -360,16 +358,15 @@ def feed(engine: Engine, path: str, config: RunConfig, names: List[str],
          regions, reader=None, member: int = 0,
          puller: Optional[EncPuller] = None, stash=()) -> None:
     """Every event of ``path`` into ``engine``, by the first feed that
-    takes it: the native stream (encoded windows or raw pairs, as the
-    engine elects), the native one-shot loader, native SAM text,
-    vectorised CRAM, then the Python decoders' batches into the engine's
-    ``add_batch``. ``reader`` is the already open reader of a SAM or CRAM
-    input, or the native loader that :func:`prepare` started, with the
-    encoded windows it stashed (``puller``, ``stash``); without one,
-    ``path`` is a BAM, and unless ``PANDEPTH_NO_NATIVE=1`` a native
-    loader that fails raises. ``member`` > 0 is a later file of a
-    ``.list``, read in the first file's contig space (the reference's
-    quirk Q5)."""
+    takes it: the native BAM stream (encoded windows or raw pairs, as
+    the engine elects), native SAM text, vectorised CRAM, then the Python
+    decoders' batches into the engine's ``add_batch``. ``reader`` is the
+    already open reader of a SAM or CRAM input, or the native stream that
+    :func:`prepare` started, with the encoded windows it stashed
+    (``puller``, ``stash``); without one, ``path`` is a BAM, and unless
+    ``PANDEPTH_NO_NATIVE=1`` a native stream that fails raises.
+    ``member`` > 0 is a later file of a ``.list``, read in the first
+    file's contig space (the reference's quirk Q5)."""
     r = reader
     if r is None:
         if _native_wanted():
@@ -378,14 +375,9 @@ def feed(engine: Engine, path: str, config: RunConfig, names: List[str],
                 "ext_limits": engine.layout.limits}
             r = _native_loader(path, config, regions, **later)
         else:
-            r = open_alignment(path, threads=config.threads)
+            r = open_alignment(path)
     if hasattr(r, "wait") and hasattr(r, "take32"):
         feed_stream(engine, r, puller, stash)
-        return
-    if hasattr(r, "events"):
-        _add_loaded(engine, r, r.n_events)
-        engine.n_reads_seen += r.n_records
-        r.close()
         return
     if regions is None and isinstance(r, SamReader) and _native_wanted():
         _feed_sam_native(engine, path, config, names)
@@ -457,8 +449,7 @@ def read_head(config: RunConfig, stats: Optional[RunStats] = None) -> Head:
     reader = None
     if header is None:  # SAM text or CRAM
         with phase(stats, "open"):
-            reader = open_alignment(config.inputs[0],
-                                    threads=config.threads)
+            reader = open_alignment(config.inputs[0])
         header = reader.header
     ref_bases = None
     if config.gc:
@@ -614,7 +605,7 @@ def stage(config: RunConfig, device=None, stats: Optional[RunStats] = None,
                 header = cheap_header(path)
                 reader = None
                 if header is None:  # SAM text or CRAM
-                    reader = open_alignment(path, threads=config.threads)
+                    reader = open_alignment(path)
                     header = getattr(reader, "header", None)
                 feed(st.engine, path, config, st.names,
                      read_regions(config, st.mode, st.targets, st.lengths,
@@ -702,7 +693,7 @@ def site_split_wanted(config: RunConfig, head: Head) -> bool:
     neither window mode; ``PANDEPTH_SITE_SPLIT=1`` forces them, ``0``
     keeps the one-shot run, and unset they run past
     ``PANDEPTH_SITE_SPLIT_BYTES`` (default 1 GiB) of compressed input;
-    and only where libpancov_io loads (its ranged loader feeds them)."""
+    and only where libpancov_io loads (its ranged stream feeds them)."""
     if not ((config.site_output or len(config.inputs) > 1)
             and head.reader is None and config.use_index
             and all(index_present(p) for p in config.inputs)

@@ -309,6 +309,65 @@ def test_native_failure_exits_nonzero(tmp_path, bams, capsys, monkeypatch,
     assert not os.path.exists(out + ".chr.stat.gz")
 
 
+@pytest.fixture(scope="module")
+def big_header(tmp_path_factory):
+    """A coordinate-sorted BAM whose header takes more than 4 MiB of
+    compressed bytes (random base64 @CO lines, as a fragmented assembly's
+    contig table takes), with a .bai and, in another directory, without
+    one."""
+    import base64
+    import shutil
+
+    from pandepth_tpu_torch.io import bgzf
+    from pandepth_tpu_torch.io.bam_writer import write_bam as port_write_bam
+
+    d = tmp_path_factory.mktemp("big_header")
+    names = [c[0] for c in CONTIGS]
+    lengths = [c[1] for c in CONTIGS]
+    noise = base64.b64encode(
+        np.random.RandomState(21).bytes(9 << 19)).decode()
+    text = "@HD\tVN:1.6\tSO:coordinate\n" + "".join(
+        f"@SQ\tSN:{n}\tLN:{ln}\n" for n, ln in zip(names, lengths)) + \
+        "".join(f"@CO\t{noise[i:i + 76]}\n"
+                for i in range(0, len(noise), 76))
+    path = str(d / "big.bam")
+    port_write_bam(path, names, lengths, random_reads(n=800, seed=23),
+                   header_text=text)
+    # the compressed bytes of the blocks that the header's bytes fill
+    hdr_bytes = 12 + len(text) + sum(9 + len(n) for n in names)
+    with open(path, "rb") as fh:
+        raw = fh.read()
+    inflated = 0
+    for off, bsize, payload in bgzf.iter_block_ranges(raw):
+        inflated += len(bgzf.decompress_block(raw, off, payload, bsize))
+        if inflated >= hdr_bytes:
+            break
+    assert off + bsize > 1 << 22
+    (d / "noidx").mkdir()
+    shutil.copy(path, str(d / "noidx" / "big.bam"))
+    make_bed(str(d / "t.bed"))
+    return {"bai": path, "noidx": str(d / "noidx" / "big.bam"),
+            "bed": str(d / "t.bed")}
+
+
+@pytest.mark.parametrize("index", ["bai", "noidx"])
+@pytest.mark.parametrize("mode", ["chr", "bed"])
+def test_large_header_takes_the_stream(tmp_path, big_header, monkeypatch,
+                                       batch_calls, enc_finalizes, mode,
+                                       index):
+    """A BAM whose header is past the first 4 MiB of compressed bytes
+    still takes the native stream, in chr mode and with -b, with and
+    without a .bai: no batch reaches the CIGAR feed's add_batch, and the
+    tables are byte-equal to pandepth_tpu.cli's."""
+    _feed(monkeypatch, "1")
+    args, table = MODES[mode]
+    args = ["-i", big_header[index],
+            *(a.format(bed=big_header["bed"]) for a in args)]
+    got = _port_table(tmp_path, args, table=table)
+    assert not batch_calls and enc_finalizes
+    assert got == _jax_table(tmp_path, args, table=table)
+
+
 def _outputs(tmp_path, args, names, device="cpu", jax=False):
     """The decompressed outputs ``names`` of one run of the port's CLI on
     ``device`` (or, with ``jax``, of pandepth_tpu.cli)."""
