@@ -527,7 +527,7 @@ except OSError as e:
                     "-shared", "-fPIC", "-o", native._LIB, native._SRC,
                     "-lz", "-lpthread"], check=True)
     print(f"libpancov_io did not load ({missing or e}); REBUILT WITHOUT "
-          f"libdeflate, so the feed inflates with zlib")
+          f"libdeflate, so the table writers compress with zlib")
     lib = native.load_library()
 if lib is None:
     sys.exit(f"libpancov_io does not build: {native.build_error()}")

@@ -172,7 +172,8 @@ def feed_stream(engine, r, puller: Optional[EncPuller] = None,
     ``take32`` on one stream would lose the encoder's accumulated
     pairs. Each pull of a window is the run's ``feed.take`` span, the
     seconds the pulls blocked on the stream's producer (its counter, read
-    as the stream closes) are its ``feed.wait``, the share of the
+    as the stream closes) are its ``feed.wait``, the seconds its threads
+    spent inflating BGZF blocks its ``feed.inflate``, the share of the
     stream's records walked in index-cut splits is its ``feed.split``,
     the share of the file's compressed bytes that its walk consumed its
     ``feed.read``, and the share of its decoded records that its filters
@@ -207,6 +208,7 @@ def feed_stream(engine, r, puller: Optional[EncPuller] = None,
     engine.n_reads_seen += r.n_records
     if hasattr(r, "wait_seconds"):  # the JAX package's stream has none
         note("feed.wait", r.wait_seconds())
+        note("feed.inflate", r.inflate_seconds())
         note("feed.split", r.split_share())
         note("feed.read", r.read_share())
         note("feed.kept", r.kept_share())

@@ -53,9 +53,10 @@ def _build() -> Optional[str]:
     os.makedirs(_LIB_DIR, exist_ok=True)
     base = ["g++", "-O3", "-march=native", "-std=c++17", "-shared",
             "-fPIC", "-o", _LIB, _SRC]
-    # libdeflate decompresses BGZF ~2-3x faster than zlib; link it when
-    # a system or vendored copy (PANDEPTH_LIBDEFLATE: a directory with
-    # lib/libdeflate.a and include/) is available, else fall back to zlib
+    # the gzip table writers compress with libdeflate when a system or
+    # vendored copy (PANDEPTH_LIBDEFLATE: a directory with
+    # lib/libdeflate.a and include/) is available, else with zlib; BGZF
+    # blocks inflate with the library's own decoder either way
     attempts = []
     ld = os.environ.get("PANDEPTH_LIBDEFLATE")
     if ld and os.path.exists(os.path.join(ld, "lib", "libdeflate.a")):
@@ -137,6 +138,11 @@ def load_library() -> Optional[ctypes.CDLL]:
              [ctypes.c_void_p, ctypes.c_char_p]),
             ("pancov_stream_close", None, [ctypes.c_void_p]),
             ("pancov_stream_wait_ns", ctypes.c_int64, [ctypes.c_void_p]),
+            ("pancov_stream_inflate_ns", ctypes.c_int64,
+             [ctypes.c_void_p]),
+            ("pancov_inflate_raw", ctypes.c_int,
+             [ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
+              ctypes.c_int64]),
         ]:
             fn = getattr(lib, name)
             fn.restype = res
@@ -679,6 +685,12 @@ class NativeBamStream:
         :meth:`wait` and the ``take_enc_acc`` pulls) since the last call;
         the count starts anew."""
         return int(self._lib.pancov_stream_wait_ns(self._h)) * 1e-9
+
+    def inflate_seconds(self) -> float:
+        """Seconds the stream's threads have spent inflating its BGZF
+        blocks, summed over them (the split walk's added as it ends): the
+        whole stream's once it has ended."""
+        return int(self._lib.pancov_stream_inflate_ns(self._h)) * 1e-9
 
     def progress(self):
         """(fraction consumed, event pairs produced) of the PRODUCER

@@ -8,9 +8,9 @@
 //
 //   * scans BGZF block boundaries via the BSIZE extra field (SAMv1
 //     §4.1) without inflating,
-//   * inflates blocks in parallel (zlib or libdeflate raw deflate per
-//     block; the ISIZE trailer gives each block's output offset up
-//     front, so threads write disjoint slices of one buffer),
+//   * inflates blocks in parallel (its own raw DEFLATE decoder,
+//     inflate_block; the ISIZE trailer gives each block's output offset
+//     up front, so threads write disjoint slices of one buffer),
 //   * walks the records once, filtering them and extracting each kept
 //     M/=/X segment as a clamped global [start, end) coverage event,
 //     in bounded-memory windows behind a producer thread, on every
@@ -138,35 +138,480 @@ long bgzf_block_size(const uint8_t* p, size_t xend) {
   return bsize < 0 || (size_t)bsize < xend + 8 ? -1 : bsize;
 }
 
-#ifdef USE_LIBDEFLATE
-// libdeflate decompresses BGZF blocks ~2-3x faster than zlib — the
-// host-side throughput lever called out in SURVEY.md §2.2. One
-// decompressor per thread (they are not thread-safe but are reusable).
-thread_local libdeflate_decompressor* tl_decomp = nullptr;
+// Raw DEFLATE (RFC 1951) inflate of one BGZF block's payload. The whole
+// payload is in memory and its output length (ISIZE) is known, so there
+// is no streaming state and no window across calls. Table-driven, after
+// libdeflate's design: a 64-bit bit buffer refilled with one unaligned
+// 8-byte load, packed-entry Huffman tables (a primary lookup, subtables
+// for longer codes), a fast loop that decodes up to three literals a
+// refill and copies matches a word at a time while the bounds leave room
+// for the longest symbol, and a loop with exact bounds for the rest.
+namespace deflate {
 
+static_assert(__BYTE_ORDER__ == __ORDER_LITTLE_ENDIAN__,
+              "the bit reader loads little-endian words");
+
+// A table entry: bits 0-7 the bits to drop (the codeword's length and
+// the extra bits that follow it; for a subtable pointer the primary
+// table's bits), 8-11 the codeword's length (for a subtable pointer its
+// index bits), 12-15 the kind, and 16-31 the value: a literal, a length
+// or offset base, a precode symbol, or a subtable's start.
+constexpr uint32_t kBad = 1u << 12;  // a symbol no valid stream sends
+constexpr uint32_t kEob = 1u << 13;  // the end of the block
+constexpr uint32_t kSub = 1u << 14;  // a pointer to a subtable
+constexpr uint32_t kLit = 1u << 15;  // a literal byte
+// a precode entry: repeat the previous length (symbol 16; precode tables
+// have no subtables)
+constexpr uint32_t kPrev = kSub;
+
+constexpr int kLitlenBits = 11, kOffsetBits = 8, kPrecodeBits = 7;
+constexpr int kMaxCodeLen = 15;
+// the most entries a table needs for any valid code (zlib's `enough`:
+// 288 symbols at 11 primary bits, 32 at 8, codewords to 15 bits)
+constexpr int kLitlenEnough = 2342, kOffsetEnough = 402;
+constexpr int kPrecodeEnough = 1 << kPrecodeBits;
+constexpr int kNumLitlen = 288, kNumOffset = 32, kNumPrecode = 19;
+
+constexpr uint16_t kLenBase[29] = {3,  4,  5,  6,  7,  8,  9,  10,
+                                   11, 13, 15, 17, 19, 23, 27, 31,
+                                   35, 43, 51, 59, 67, 83, 99, 115,
+                                   131, 163, 195, 227, 258};
+constexpr uint8_t kLenExtra[29] = {0, 0, 0, 0, 0, 0, 0, 0, 1, 1,
+                                   1, 1, 2, 2, 2, 2, 3, 3, 3, 3,
+                                   4, 4, 4, 4, 5, 5, 5, 5, 0};
+constexpr uint16_t kOffBase[30] = {
+    1,    2,    3,    4,    5,    7,     9,     13,    17,  25,
+    33,   49,   65,   97,   129,  193,   257,   385,   513, 769,
+    1025, 1537, 2049, 3073, 4097, 6145, 8193, 12289, 16385, 24577};
+constexpr uint8_t kOffExtra[30] = {0, 0, 0, 0, 1, 1, 2,  2,  3,  3,
+                                   4, 4, 5, 5, 6, 6, 7,  7,  8,  8,
+                                   9, 9, 10, 10, 11, 11, 12, 12, 13, 13};
+constexpr uint8_t kPrecodeOrder[kNumPrecode] = {
+    16, 17, 18, 0, 8, 7, 9, 6, 10, 5, 11, 4, 12, 3, 13, 2, 14, 1, 15};
+
+// each symbol's entry, less its codeword's length: its extra bits in
+// bits 0-7
+struct Results {
+  uint32_t litlen[kNumLitlen] = {}, offset[kNumOffset] = {},
+           precode[kNumPrecode] = {};
+  constexpr Results() {
+    for (int s = 0; s < 256; s++) litlen[s] = kLit | (uint32_t)s << 16;
+    litlen[256] = kEob;
+    for (int s = 257; s < 286; s++)
+      litlen[s] = (uint32_t)kLenBase[s - 257] << 16 | kLenExtra[s - 257];
+    litlen[286] = litlen[287] = kBad;
+    for (int s = 0; s < 30; s++)
+      offset[s] = (uint32_t)kOffBase[s] << 16 | kOffExtra[s];
+    offset[30] = offset[31] = kBad;
+    // precode: the length (bits 16-23) and the repeat count's base
+    // (24-31) with its extra bits
+    for (int s = 0; s < 16; s++) precode[s] = 1u << 24 | (uint32_t)s << 16;
+    precode[16] = kPrev | 3u << 24 | 2;
+    precode[17] = 3u << 24 | 3;
+    precode[18] = 11u << 24 | 7;
+  }
+};
+constexpr Results kResults;
+
+struct Rev8 {
+  uint8_t v[256] = {};
+  constexpr Rev8() {
+    for (int i = 0; i < 256; i++)
+      for (int b = 0; b < 8; b++)
+        if (i >> b & 1) v[i] |= (uint8_t)(0x80 >> b);
+  }
+};
+constexpr Rev8 kRev8;
+
+// the `len`-bit codeword `code` in the order the stream sends its bits
+inline uint32_t reversed(uint32_t code, int len) {
+  return ((uint32_t)kRev8.v[code & 0xFF] << 8 | kRev8.v[code >> 8 & 0xFF])
+         >> (16 - len);
+}
+
+// Build the decode table of the canonical code whose codeword lengths
+// are lens[0, n): entry results[sym] with its codeword's length, at every
+// index whose low `bits` bits are the codeword (sent order), or a
+// subtable pointer where the codeword is longer. False on an
+// over-subscribed code, and on an incomplete one unless `incomplete_ok`
+// and the code is one that zlib takes: no codeword at all, or a single
+// one of length 1 (the unused codewords then decode as kBad).
+bool build_table(uint32_t* table, int bits, int enough, const uint8_t* lens,
+                 int n, const uint32_t* results, bool incomplete_ok) {
+  // counted four ways: no increment waits on the one before
+  uint16_t count4[4][kMaxCodeLen + 1] = {}, count[kMaxCodeLen + 1];
+  for (int s = 0; s < n; s++) count4[s & 3][lens[s]]++;
+  for (int l = 0; l <= kMaxCodeLen; l++)
+    count[l] = count4[0][l] + count4[1][l] + count4[2][l] + count4[3][l];
+  count[0] = 0;
+  uint32_t used = 0;  // the codespace taken, out of 2^kMaxCodeLen
+  for (int l = 1; l <= kMaxCodeLen; l++)
+    used += (uint32_t)count[l] << (kMaxCodeLen - l);
+  if (used > 1u << kMaxCodeLen) return false;
+  const uint32_t primary = 1u << bits;
+  if (used < 1u << kMaxCodeLen) {
+    if (!incomplete_ok ||
+        (used != 0 && !(count[1] == 1 && used == 1u << (kMaxCodeLen - 1))))
+      return false;
+    for (uint32_t i = 0; i < primary; i++) table[i] = kBad;
+    for (int s = 0; s < n; s++)
+      if (lens[s])
+        for (uint32_t i = 0; i < primary; i += 2)
+          table[i] = results[s] + (1u << 8) + 1;
+    return true;
+  }
+  // the symbols in canonical order, by length and then by value, after
+  // those of no codeword
+  const int zeros = n - count[1] - count[2] - count[3] - count[4] -
+                    count[5] - count[6] - count[7] - count[8] - count[9] -
+                    count[10] - count[11] - count[12] - count[13] -
+                    count[14] - count[15];
+  uint16_t first[kMaxCodeLen + 1] = {0, (uint16_t)zeros};
+  for (int l = 1; l < kMaxCodeLen; l++) first[l + 1] = first[l] + count[l];
+  uint16_t sorted[kNumLitlen];
+  for (int s = 0; s < n; s++) sorted[first[lens[s]]++] = (uint16_t)s;
+  uint32_t code = 0;  // the next codeword, most significant bit first
+  int k = zeros, l = 1;
+  // codewords that fit the primary table, each written once into its
+  // first 2^l entries, which are doubled before each longer length: a
+  // codeword of length l repeats every 2^l entries. The code is
+  // complete, so every entry is written by the end
+  for (uint32_t size = 2; l <= bits; l++, code <<= 1) {
+    if (l > 1) {
+      std::memcpy(table + size, table, size * sizeof(uint32_t));
+      size <<= 1;
+    }
+    for (uint32_t c = count[l]; c > 0; c--, code++)
+      table[reversed(code, l)] =
+          results[sorted[k++]] + ((uint32_t)l << 8) + (uint32_t)l;
+  }
+  // longer codewords: a subtable for each primary index they share
+  uint32_t sub_at = primary, sub_size = 0, prefix = UINT32_MAX;
+  for (; l <= kMaxCodeLen; l++, code <<= 1) {
+    for (uint32_t c = count[l]; c > 0; c--, code++) {
+      const uint32_t rev = reversed(code, l);
+      if ((rev & (primary - 1)) != prefix) {
+        // a new subtable, as deep as the codewords of this prefix reach:
+        // they come first among those left, and none is shorter than
+        // this one
+        prefix = rev & (primary - 1);
+        sub_at += sub_size;
+        int sb = l - bits;
+        uint32_t have = c;
+        while (have < 1u << sb && bits + sb < kMaxCodeLen) {
+          sb++;
+          have = (have << 1) + count[bits + sb];
+        }
+        sub_size = 1u << sb;
+        if (sub_at + sub_size > (uint32_t)enough) return false;
+        table[prefix] = kSub | sub_at << 16 | (uint32_t)sb << 8 |
+                        (uint32_t)bits;
+      }
+      const uint32_t e = results[sorted[k++]] +
+                         ((uint32_t)(l - bits) << 8) + (uint32_t)(l - bits);
+      for (uint32_t i = rev >> bits; i < sub_size; i += 1u << (l - bits))
+        table[sub_at + i] = e;
+    }
+  }
+  return true;
+}
+
+struct Fixed {
+  uint32_t litlen[kLitlenEnough], offset[kOffsetEnough];
+  Fixed() {
+    uint8_t lens[kNumLitlen + kNumOffset];
+    int s = 0;
+    for (; s < 144; s++) lens[s] = 8;
+    for (; s < 256; s++) lens[s] = 9;
+    for (; s < 280; s++) lens[s] = 7;
+    for (; s < kNumLitlen; s++) lens[s] = 8;
+    for (; s < kNumLitlen + kNumOffset; s++) lens[s] = 5;
+    build_table(litlen, kLitlenBits, kLitlenEnough, lens, kNumLitlen,
+                kResults.litlen, false);
+    build_table(offset, kOffsetBits, kOffsetEnough, lens + kNumLitlen,
+                kNumOffset, kResults.offset, false);
+  }
+};
+
+inline uint64_t load64(const uint8_t* p) {
+  uint64_t v;
+  std::memcpy(&v, p, 8);
+  return v;
+}
+inline void store64(uint8_t* p, uint64_t v) { std::memcpy(p, &v, 8); }
+
+// Copy the match of `len` (3 to 258) bytes from `dist` back to out, a
+// word or two at a time: it writes up to 15 bytes past out + len.
+inline void copy_match(uint8_t* out, uint32_t dist, uint32_t len) {
+  uint8_t* const end = out + len;
+  const uint8_t* src = out - dist;
+  if (dist >= 16) {
+    do {
+      std::memcpy(out, src, 16);
+      out += 16;
+      src += 16;
+    } while (out < end);
+  } else if (dist >= 8) {
+    do {
+      store64(out, load64(src));
+      out += 8;
+      src += 8;
+    } while (out < end);
+  } else if (dist == 1) {
+    const uint64_t v = 0x0101010101010101ull * *src;
+    do {
+      store64(out, v);
+      store64(out + 8, v);
+      out += 16;
+    } while (out < end);
+  } else {
+    // a word a step of `dist` bytes (each store's first `dist` bytes are
+    // right) until a multiple of dist of 8 or more is written, then
+    // whole words from that far back
+    const uint32_t far = dist * ((8 + dist - 1) / dist);
+    uint8_t* const stop = out + far;
+    do {
+      store64(out, load64(src));
+      out += dist;
+      src += dist;
+    } while (out < stop && out < end);
+    for (src = out - far; out < end; out += 8, src += 8)
+      store64(out, load64(src));
+  }
+}
+
+// the fast loop's room: two refills read 16 bytes; a longest match and
+// its over-copied word
+constexpr size_t kFastIn = 16, kFastOut = 258 + 16;
+
+}  // namespace deflate
+
+// Inflate the raw DEFLATE stream src[0, src_len) into exactly dst_len
+// bytes at dst. It takes what zlib's raw inflate takes, no more: block
+// type 3, a stored block whose LEN and NLEN disagree, a length repeat
+// with no previous length, an over-subscribed code or an incomplete one
+// (but for a code of one codeword of length 1, or no distance code at
+// all), a code without an end of block, litlen symbols 286-287, distance
+// symbols 30-31, a distance before the output's start, output past
+// dst_len, bits past src_len, or a final block that ends short of
+// dst_len all fail. Input after the final block is ignored. It reads
+// nothing outside src[0, src_len), writes nothing outside
+// dst[0, dst_len), and keeps its tables on the stack.
 bool inflate_block(const uint8_t* src, size_t src_len, uint8_t* dst,
                    uint32_t dst_len) {
-  if (!tl_decomp) tl_decomp = libdeflate_alloc_decompressor();
-  size_t actual = 0;
-  auto rc = libdeflate_deflate_decompress(tl_decomp, src, src_len, dst,
-                                          dst_len, &actual);
-  return rc == LIBDEFLATE_SUCCESS && actual == dst_len;
+  using namespace deflate;
+  static const Fixed fixed;
+  const uint8_t* in = src;
+  const uint8_t* const in_end = src + src_len;
+  const uint8_t* const in_fast = src_len > kFastIn ? in_end - kFastIn : src;
+  uint8_t* out = dst;
+  uint8_t* const out_end = dst + dst_len;
+  uint8_t* const out_fast = dst_len > kFastOut ? out_end - kFastOut : dst;
+  // bitbuf's low `bitsleft` bits are the stream's next bits; the bits
+  // above them are the bytes after those or zeros. `overread` zero bytes
+  // were refilled past the input's end: the last ones in the buffer
+  uint64_t bitbuf = 0;
+  unsigned bitsleft = 0;
+  size_t overread = 0;
+  auto refill_word = [&] {
+    bitbuf |= load64(in) << bitsleft;
+    in += 7 - (bitsleft >> 3);
+    bitsleft |= 56;
+  };
+  auto refill = [&] {  // at least 56 bits after
+    if (in_end - in >= 8) return refill_word();
+    for (; bitsleft < 56; bitsleft += 8) {
+      if (in < in_end)
+        bitbuf |= (uint64_t)*in++ << bitsleft;
+      else
+        overread++;
+    }
+  };
+  auto peek = [&](unsigned n) { return (uint32_t)bitbuf & ((1u << n) - 1); };
+  auto drop = [&](unsigned n) {
+    bitbuf >>= n;
+    bitsleft -= n;
+  };
+  // bits past the input's end consumed
+  auto past_end = [&] { return overread * 8 > bitsleft; };
+  // the value of a length or offset entry: its base plus the extra bits
+  // after its codeword; drops both
+  auto value = [&](uint32_t e) {
+    const uint64_t bits = bitbuf & ((1ull << (e & 0xFF)) - 1);
+    drop(e & 0xFF);
+    return (e >> 16) + (uint32_t)(bits >> (e >> 8 & 0xF));
+  };
+  uint32_t litlen[kLitlenEnough], offset[kOffsetEnough],
+      precode[kPrecodeEnough];
+  uint8_t lens[kNumLitlen + kNumOffset + 8];
+  bool last;
+  do {
+    refill();
+    if (past_end()) return false;
+    last = bitbuf & 1;
+    const unsigned type = (unsigned)(bitbuf >> 1) & 3;
+    drop(3);
+    const uint32_t *lt = fixed.litlen, *ot = fixed.offset;
+    if (type == 0) {
+      // stored: from the next byte boundary, LEN, NLEN and LEN bytes
+      drop(bitsleft & 7);
+      if (past_end()) return false;
+      in -= (bitsleft >> 3) - overread;
+      bitbuf = 0;
+      bitsleft = 0;
+      overread = 0;
+      if (in_end - in < 4) return false;
+      const uint32_t len = le16(in);
+      if (len != (uint32_t)(uint16_t)~le16(in + 2)) return false;
+      in += 4;
+      if ((size_t)(in_end - in) < len || (size_t)(out_end - out) < len)
+        return false;
+      std::memcpy(out, in, len);
+      in += len;
+      out += len;
+      continue;
+    }
+    if (type == 3) return false;
+    if (type == 2) {
+      const unsigned nlit = peek(5) + 257;
+      const unsigned ndist = (peek(10) >> 5) + 1;
+      const unsigned nclen = (peek(14) >> 10) + 4;
+      drop(14);
+      if (nlit > 286 || ndist > 30) return false;
+      uint8_t plens[kNumPrecode] = {};
+      for (unsigned i = 0; i < nclen; i++) {
+        if (bitsleft < 3) refill();
+        plens[kPrecodeOrder[i]] = (uint8_t)peek(3);
+        drop(3);
+      }
+      if (!build_table(precode, kPrecodeBits, kPrecodeEnough, plens,
+                       kNumPrecode, kResults.precode, false))
+        return false;
+      const unsigned n = nlit + ndist;
+      for (unsigned i = 0; i < n;) {
+        if (bitsleft < 14) refill();  // a codeword and its extra bits
+        const uint32_t e = precode[peek(kPrecodeBits)];
+        const unsigned rep = (e >> 24) + (unsigned)value(e & 0xFFFF);
+        uint8_t v = (uint8_t)(e >> 16);
+        if (e & kPrev) {
+          if (i == 0) return false;
+          v = lens[i - 1];
+        }
+        if (rep > n - i) return false;
+        // a word, then the rest of a long run: lens has room for the
+        // word's tail
+        store64(lens + i, 0x0101010101010101ull * v);
+        if (rep > 8) std::memset(lens + i + 8, v, rep - 8);
+        i += rep;
+      }
+      if (lens[256] == 0) return false;
+      if (!build_table(litlen, kLitlenBits, kLitlenEnough, lens, nlit,
+                       kResults.litlen, true) ||
+          !build_table(offset, kOffsetBits, kOffsetEnough, lens + nlit,
+                       ndist, kResults.offset, true))
+        return false;
+      lt = litlen;
+      ot = offset;
+    }
+    // the fast loop. At its top the buffer holds at least 56 bits and e
+    // is the entry of its next 11: a match takes at most 48 bits (a
+    // litlen codeword of 15 and 5 extra, an offset codeword of 15 and 13
+    // extra), three literals from the primary table at most 33, and the
+    // next entry is looked up before the bytes are written
+    bool eob = false;
+    uint32_t e = 0;
+    if (in < in_fast && out < out_fast) {
+      refill_word();
+      e = lt[peek(kLitlenBits)];
+    }
+    while (in < in_fast && out < out_fast) {
+      if (e & kLit) {
+        drop(e & 0xFF);
+        uint32_t lit = e >> 16;
+        e = lt[peek(kLitlenBits)];
+        *out++ = (uint8_t)lit;
+        if (e & kLit) {
+          drop(e & 0xFF);
+          lit = e >> 16;
+          e = lt[peek(kLitlenBits)];
+          *out++ = (uint8_t)lit;
+          if (e & kLit) {
+            drop(e & 0xFF);
+            lit = e >> 16;
+            e = lt[peek(kLitlenBits)];
+            *out++ = (uint8_t)lit;
+          }
+        }
+        refill_word();
+        continue;
+      }
+      if (e & kSub) {
+        drop(e & 0xFF);
+        e = lt[(e >> 16) + peek(e >> 8 & 0xF)];
+        if (e & kLit) {
+          drop(e & 0xFF);
+          *out++ = (uint8_t)(e >> 16);
+          refill_word();
+          e = lt[peek(kLitlenBits)];
+          continue;
+        }
+      }
+      if (e & (kEob | kBad)) {
+        if (e & kBad) return false;
+        drop(e & 0xFF);
+        eob = true;
+        break;
+      }
+      const uint32_t len = value(e);
+      uint32_t d = ot[peek(kOffsetBits)];
+      if (d & kSub) {
+        drop(d & 0xFF);
+        d = ot[(d >> 16) + peek(d >> 8 & 0xF)];
+      }
+      if (d & kBad) return false;
+      const uint32_t dist = value(d);
+      if (dist > (size_t)(out - dst)) return false;
+      refill_word();
+      e = lt[peek(kLitlenBits)];
+      copy_match(out, dist, len);
+      out += len;
+    }
+    // the rest of the block, with exact bounds
+    while (!eob) {
+      if (bitsleft < 48) refill();
+      uint32_t e = lt[peek(kLitlenBits)];
+      if (e & kSub) {
+        drop(e & 0xFF);
+        e = lt[(e >> 16) + peek(e >> 8 & 0xF)];
+      }
+      if (e & kLit) {
+        drop(e & 0xFF);
+        if (out == out_end) return false;
+        *out++ = (uint8_t)(e >> 16);
+        continue;
+      }
+      if (e & (kEob | kBad)) {
+        if (e & kBad) return false;
+        drop(e & 0xFF);
+        break;
+      }
+      const uint32_t len = value(e);
+      uint32_t d = ot[peek(kOffsetBits)];
+      if (d & kSub) {
+        drop(d & 0xFF);
+        d = ot[(d >> 16) + peek(d >> 8 & 0xF)];
+      }
+      if (d & kBad) return false;
+      const uint32_t dist = value(d);
+      if (dist > (size_t)(out - dst) || len > (size_t)(out_end - out))
+        return false;
+      const uint8_t* s = out - dist;
+      for (uint32_t i = 0; i < len; i++) out[i] = s[i];
+      out += len;
+    }
+  } while (!last);
+  return out == out_end && !past_end();
 }
-#else
-bool inflate_block(const uint8_t* src, size_t src_len, uint8_t* dst,
-                   uint32_t dst_len) {
-  z_stream zs;
-  std::memset(&zs, 0, sizeof(zs));
-  if (inflateInit2(&zs, -15) != Z_OK) return false;
-  zs.next_in = const_cast<uint8_t*>(src);
-  zs.avail_in = (uInt)src_len;
-  zs.next_out = dst;
-  zs.avail_out = dst_len;
-  int rc = inflate(&zs, Z_FINISH);
-  inflateEnd(&zs);
-  return rc == Z_STREAM_END && zs.avail_out == 0;
-}
-#endif
 
 // Long-CIGAR records: BAM caps n_cigar at 2^16-1, so writers store a
 // `l_qseq S, ref_span N` placeholder in the CIGAR field and the real
@@ -623,6 +1068,10 @@ struct StreamBam {
   // nanoseconds the consumer blocked on the queue (wait_window; read and
   // restarted by pancov_stream_wait_ns); guarded by mu
   int64_t wait_ns = 0;
+  // nanoseconds the stream's threads spent in inflate_block: the header's
+  // blocks, the serial walk's as each is inflated, the split walk's
+  // summed over its threads as it ends
+  std::atomic<int64_t> inflate_ns{0};
   // the index's record-start virtual offsets, sorted: where the splits
   // of a whole-file stream, or of a long range, may start
   std::vector<int64_t> cuts;
@@ -876,11 +1325,16 @@ struct StreamBam {
           uint32_t expect = 0;
           if (!claim[k].compare_exchange_strong(expect, 1)) return false;
           const Block& b = blocks[k];
+          const auto t0 = now();
           if (b.out_len &&
               !inflate_block(raw.data() + b.in_off, b.in_len,
                              dec.data() + base_dec + b.out_off,
                              b.out_len))
             ok.store(false);
+          inflate_ns.fetch_add(
+              std::chrono::duration_cast<std::chrono::nanoseconds>(
+                  now() - t0).count(),
+              std::memory_order_relaxed);
           done[k].store(1, std::memory_order_release);
           return true;
         };
@@ -1061,7 +1515,8 @@ struct StreamBam {
     int state = 0;    // 0 free or walking, 1 ended on its end, 2 did not
     size_t infl = 0;  // bytes inflated
     int64_t read = 0;  // compressed bytes read
-    int64_t read_ns = 0, inflate_ns = 0, walk_ns = 0;  // debug timing
+    int64_t inflate_ns = 0;  // in inflate_block, over every split it held
+    int64_t read_ns = 0, walk_ns = 0;  // debug timing
   };
 
   // The splits: their pieces in file order, each split's first piece
@@ -1226,12 +1681,13 @@ struct StreamBam {
       }
       size_t dlen = lin - dbase;
       if (s.dec.size() < dlen + isize) s.dec.resize(dlen + isize);
-      auto t1 = dbg ? clock::now() : clock::time_point();
-      if (isize &&
-          !inflate_block(p + xend, (size_t)bsize - xend - 8,
-                         s.dec.data() + dlen, isize))
-        return false;
-      auto t2 = dbg ? clock::now() : t1;
+      const auto t1 = clock::now();
+      const bool ok = !isize ||
+                      inflate_block(p + xend, (size_t)bsize - xend - 8,
+                                    s.dec.data() + dlen, isize);
+      const auto t2 = clock::now();
+      s.inflate_ns += ns(t1, t2);
+      if (!ok) return false;
       cpos += (size_t)bsize;
       dlen += isize;
       lin += isize;
@@ -1246,10 +1702,7 @@ struct StreamBam {
         if (nxt == 0) return false;
         rec = dbase + nxt;
       }
-      if (dbg) {
-        s.inflate_ns += ns(t1, t2);
-        s.walk_ns += ns(t2, clock::now());
-      }
+      if (dbg) s.walk_ns += ns(t2, clock::now());
       if (rec == target) return true;
       if (s.infl > cap) return false;
     }
@@ -1415,11 +1868,13 @@ struct StreamBam {
     if (!halt && bad_k >= 0 && win_splits > 0 && !push()) halt = true;
     const int64_t resume = bad_k < 0 ? -1 : pieces[first[bad_k]].v0;
     if (bad_k >= 0) resume_range = pieces[first[bad_k]].range;
+    int64_t inf = 0;
+    for (auto& sl : slots) inf += sl.inflate_ns;
+    inflate_ns.fetch_add(inf, std::memory_order_relaxed);
     if (dbg) {
-      int64_t rd = 0, inf = 0, wk = 0;
+      int64_t rd = 0, wk = 0;
       for (auto& sl : slots) {
         rd += sl.read_ns;
-        inf += sl.inflate_ns;
         wk += sl.walk_ns;
       }
       std::fprintf(stderr,
@@ -1457,6 +1912,14 @@ struct StreamBam {
 }  // namespace
 
 extern "C" {
+
+// inflate_block on its own, for the tests: 1 when the raw DEFLATE
+// stream src[0, n) inflates to exactly dst_len bytes at dst, else 0
+int pancov_inflate_raw(const uint8_t* src, int64_t n, uint8_t* dst,
+                       int64_t dst_len) {
+  if (n < 0 || dst_len < 0 || dst_len > UINT32_MAX) return 0;
+  return inflate_block(src, (size_t)n, dst, (uint32_t)dst_len) ? 1 : 0;
+}
 
 // Open the BAM stream of `path`. ext_offsets/ext_limits (may be null
 // with n_ext=0): externally imposed genome layout (multi-sample mode
@@ -1537,9 +2000,14 @@ void* pancov_stream_open(const char* path, int n_threads,
           if (b.out_len)
             starts.emplace_back(b.src_off, base_dec + b.out_off);
         }
-        if (!inflate_window(raw.data(), blocks, dec.data() + base_dec,
-                            1))
-          return fail0("BGZF inflate failed");
+        const auto t0 = std::chrono::steady_clock::now();
+        const bool ok = inflate_window(raw.data(), blocks,
+                                       dec.data() + base_dec, 1);
+        sb->inflate_ns.fetch_add(
+            std::chrono::duration_cast<std::chrono::nanoseconds>(
+                std::chrono::steady_clock::now() - t0).count(),
+            std::memory_order_relaxed);
+        if (!ok) return fail0("BGZF inflate failed");
         comp_done += consumed;
       } else {
         dec.assign(raw.begin(), raw.end());
@@ -1856,6 +2324,12 @@ int64_t pancov_stream_wait_ns(void* h) {
   int64_t ns = sb->wait_ns;
   sb->wait_ns = 0;
   return ns;
+}
+
+// nanoseconds the stream's threads have spent inflating BGZF blocks
+// (inflate_block), summed over them: the whole stream's once it has ended
+int64_t pancov_stream_inflate_ns(void* h) {
+  return ((StreamBam*)h)->inflate_ns.load();
 }
 
 int64_t pancov_stream_n_records(void* h) {

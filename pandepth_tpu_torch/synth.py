@@ -14,20 +14,24 @@ with the same seeds, draws and file names as the repo's generators:
   ``_write_paf_fixture``), and bench.py's reads unsorted
   (:func:`unsorted_bam`);
 - an indexed BAM deeper than 2^18 at one base (:func:`deep_bam`), where
-  the reference's 18-bit depth cells wrap.
+  the reference's 18-bit depth cells wrap;
+- a BAM of random bases and qualities (:func:`literal_bam`), whose BGZF
+  blocks are mostly literals.
 """
 
 from __future__ import annotations
 
 import os
 import random
+import struct
 from typing import List, Optional, Tuple
 
 import numpy as np
 
 from pandepth_tpu_torch.device.hosteval import pad_pow2
 from pandepth_tpu_torch.io.bam import ReadBatch
-from pandepth_tpu_torch.io.bam_writer import (cigar_str_to_ops, ref_span,
+from pandepth_tpu_torch.io.bam_writer import (_BlockTrackingBgzf,
+                                              cigar_str_to_ops, ref_span,
                                               write_bam, write_uniform_bam)
 
 FLAGS = [0, 0, 0, 16, 4, 256, 512, 1024, 1040, 2048]
@@ -986,6 +990,58 @@ def deep_bam(bench_dir: str) -> str:
         os.replace(tmp + ".bai", bam + ".bai")
         os.replace(tmp, bam)
     return bam
+
+
+def literal_bam(path: str, n_reads: int, seed: int = 5) -> None:
+    """``n_reads`` sorted 150M reads on one 250 Mb contig with random
+    bases (A, C, G, T) and base qualities (2 to 41), BGZF at zlib's level
+    6 as samtools writes it, no index: blocks of mostly literals, shaped
+    like a real sample's, where the other fixtures' ``=`` bases and
+    missing qualities compress 30-fold. Read names have 7 digits: fewer
+    than 10,000,000 reads."""
+    if not 0 <= n_reads < 10_000_000:
+        raise ValueError(f"literal_bam: {n_reads} reads")
+    rng = np.random.default_rng(seed)
+    read_len, qname_len = 150, 9  # "rXXXXXXX" and its NUL
+    body = 32 + qname_len + 4 + read_len // 2 + read_len
+    rec = np.zeros((n_reads, 4 + body), np.uint8)
+
+    def put(col, arr, dtype):
+        a = np.ascontiguousarray(np.broadcast_to(np.asarray(arr, dtype),
+                                                 (n_reads,)))
+        rec[:, col: col + a.itemsize] = a.view(np.uint8).reshape(
+            n_reads, a.itemsize)
+
+    pos = np.sort(rng.integers(0, 2_000_000, n_reads))
+    put(0, body, "<i4")
+    put(8, pos, "<i4")
+    rec[:, 12] = qname_len
+    rec[:, 13] = 60
+    bins = np.zeros(n_reads, np.int64)  # reg2bin (SAMv1 5.3)
+    for shift, base in ((26, 1), (23, 9), (20, 73), (17, 585), (14, 4681)):
+        same = (pos >> shift) == ((pos + read_len - 1) >> shift)
+        bins = np.where(same, base + (pos >> shift), bins)
+    put(14, bins, "<u2")
+    put(16, 1, "<u2")
+    put(20, read_len, "<i4")
+    put(24, -1, "<i4")
+    put(28, -1, "<i4")
+    names = np.char.add("r", np.char.zfill(
+        np.arange(n_reads).astype("U7"), 7)).astype("S8")
+    rec[:, 36:44] = names.view(np.uint8).reshape(n_reads, 8)
+    put(45, read_len << 4, "<u4")  # 150M
+    nt = np.array([1, 2, 4, 8], np.uint8)  # A C G T
+    rec[:, 49: 49 + read_len // 2] = \
+        nt[rng.integers(0, 4, (n_reads, read_len // 2))] << 4 | \
+        nt[rng.integers(0, 4, (n_reads, read_len // 2))]
+    rec[:, 49 + read_len // 2:] = rng.integers(2, 42, (n_reads, read_len))
+    hdr = b"BAM\x01" + struct.pack("<i", 0) + struct.pack("<i", 1) + \
+        struct.pack("<i", 5) + b"chr1\x00" + struct.pack("<i", 250_000_000)
+    with open(path + ".tmp", "wb") as fh:
+        w = _BlockTrackingBgzf(fh)
+        w.write(hdr + rec.tobytes())
+        w.close()
+    os.replace(path + ".tmp", path)
 
 
 def list_sample_bam(path: str, seed: int, n_reads: int) -> None:

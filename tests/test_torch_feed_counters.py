@@ -3,7 +3,9 @@
 ``feed.read`` is the share of the BAM's compressed bytes that a stream's
 walk consumed (``NativeBamStream.read_share``), ``feed.kept`` the share of
 its decoded records that the ``-x``/``-q`` and region filters kept
-(``kept_share``); both are read as the stream closes. ``targets.parse``
+(``kept_share``), ``feed.inflate`` the seconds its threads spent
+inflating BGZF blocks (``inflate_seconds``); each is read as the stream
+closes. ``targets.parse``
 (the GFF tokenize), ``targets.merge`` (the merge of its rows into genes)
 and ``feed.index`` (the BAI's load and query) are spans. A verbose run
 prints each once.
@@ -22,7 +24,7 @@ from pandepth_tpu_torch.io.native import NativeBamStream, load_library
 
 N_READS = 40_000
 SPANS = ("targets.parse", "targets.merge", "feed.index", "feed.read",
-         "feed.kept")
+         "feed.kept", "feed.inflate")
 
 
 @pytest.fixture(scope="module")
@@ -95,6 +97,7 @@ def test_sparse_ranged_run(bam, tmp_path, capfd):
     for name in SPANS:
         assert len(got.get(name, [])) == 1, (name, got)
     assert 0.0 < got["feed.read"][0] < 0.5
+    assert got["feed.inflate"][0] > 0.0
     assert 0.0 < got["feed.kept"][0] < 1.0
     # the phase prints to 3 decimals, the spans to 6
     assert got["targets.parse"][0] + got["targets.merge"][0] <= \
